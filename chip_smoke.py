@@ -19,6 +19,18 @@ Phases (any failure raises and the script exits non-zero):
      skews 0, 8 and -15 degrees): no page may degrade, the Radon kernel
      must have launched, at least one region must carry a nonzero slope,
      and every PAGE-XML must parse.
+  5. training, on the dual-head model at full width (DUALHEAD_SPEC: widths
+     (32, 64, 128, 256), 448x448, 2 input channels, heads (3, 2)):
+     (a) one float32 AdamW step (TF32 off) from the same random_init
+     weights on one seeded dualhead_batch of 2, on the card and on the
+     CPU: losses, gradients and updated params are compared; (b) the
+     Trainer (bf16 convs, batch 8) for TRAIN_STEPS steps on pre-drawn
+     batches, timed with CUDA events after a warm-up, beside the host's
+     data ms per batch, a few steps with the data drawn in the loop, and
+     the peak device memory: the loss must fall; (c) a page model trained
+     for PAGE_STEPS steps and the dual-head model are saved with
+     checkpoint.save under build/smoke_models/, loaded by
+     ModelBundle.from_dir, and serve one A4 page, which must not degrade.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. With --details PATH, the run's details
 (ptxas report, per-page stage timings, kernel times) are written there as
@@ -36,6 +48,22 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 SKEWS = (0.0, 8.0, -15.0)
+TRAIN_STEPS = 150     # timed dual-head steps (b), warm-up included
+TRAIN_WARMUP = 5
+STREAM_STEPS = 10     # steps with the data drawn in the loop
+PROFILE_STEPS = 5     # more such steps under torch.profiler
+PAGE_STEPS = 20       # page-model steps for the served checkpoints (c)
+# (a) card vs CPU tolerances of one float32 AdamW step, set from the
+# first run on an H100 (loss rel 6.5e-8, gradients 2.1e-4 of the largest,
+# params 4.4e-7) with room to spare. Adam's first update is
+# lr * g / (|g| + 1e-8): an element whose gradient lies within the two
+# devices' f32 noise of zero may step differently (up to 2 * lr), so the
+# params are held to PARAM_ATOL where the CPU gradient is at least
+# GRAD_FLOOR, and the gradients to GRAD_RTOL of their largest.
+LOSS_RTOL = 1e-6
+GRAD_RTOL = 1e-3
+GRAD_FLOOR = 1e-6
+PARAM_ATOL = 1e-5
 
 
 def _cuda_time(fn, reps):
@@ -231,10 +259,9 @@ def pipeline_phase(dev, details):
     return launches, det, pages
 
 
-def profile_phase(det, page, details):
-    """torch.profiler over one more pass of `page`: its wall, the summed
-    time of its device kernels, and the host ops whose kernels take most
-    device time."""
+def _profiled(fn):
+    """torch.profiler over fn(): its wall, the summed time of its device
+    kernels, and the host ops whose kernels take most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -242,7 +269,7 @@ def profile_phase(det, page, details):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        det.process_image(*page)
+        fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
 
@@ -260,14 +287,221 @@ def profile_phase(det, page, details):
                   key=lambda r: -r["device_ms"])
     if device <= 0:
         raise RuntimeError("torch.profiler recorded no device kernels")
-    details["profile"] = {"page": page[1], "wall_s": wall,
-                          "device_s": device, "top_ops": rows[:25]}
-    print(f"profiled {page[1]}: wall {wall:.4f} s under the profiler, "
+    return wall, device, rows
+
+
+def _print_profile(what, wall, device, rows):
+    print(f"profiled {what}: wall {wall:.4f} s under the profiler, "
           f"device kernel time {device:.4f} s, idle share "
           f"{1 - device / wall:.3f}", flush=True)
     for r in rows[:10]:
         print(f"  {r['device_ms']:10.3f} ms {r['calls']:6d}x {r['op']}",
               flush=True)
+
+
+def profile_phase(det, page, details):
+    """One more pass of `page` under torch.profiler."""
+    wall, device, rows = _profiled(lambda: det.process_image(*page))
+    details["profile"] = {"page": page[1], "wall_s": wall,
+                          "device_s": device, "top_ops": rows[:25]}
+    _print_profile(page[1], wall, device, rows)
+
+
+def train_parity_phase(dev, details):
+    """(a) One float32 AdamW step of the full-width dual-head model from
+    the same weights on the same batch, on the card and on the CPU."""
+    import numpy as np
+    import torch
+
+    from sbb_textline_detection_tpu_torch.models import checkpoint, registry
+    from sbb_textline_detection_tpu_torch.training import train
+    from sbb_textline_detection_tpu_torch.utils import synthetic
+
+    spec = registry.DUALHEAD_SPEC
+    sd = checkpoint.random_init(spec, torch.Generator().manual_seed(SEED))
+    imgs, labels = synthetic.dualhead_batch(
+        np.random.default_rng(SEED + 1), 2, spec.input_height,
+        spec.input_width)
+    out = {}
+    for d in ("cpu", dev):
+        m = registry.build_module(spec, torch.float32)
+        m.load_state_dict(sd)
+        m.to(d).train()
+        step = train.make_train_step(spec, m, train.make_optimizer(
+            m.parameters()))
+        loss = step(torch.from_numpy(imgs).to(d),
+                    torch.from_numpy(labels).to(d))
+        out[str(d)] = (float(loss), {
+            n: (p.detach().cpu(), p.grad.detach().cpu())
+            for n, p in m.named_parameters()})
+    (loss_cpu, cpu), (loss_gpu, gpu) = out["cpu"], out[str(dev)]
+    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    g_scale = max(float(g.abs().max()) for _, g in cpu.values())
+    g_err = {n: float((gpu[n][1] - g).abs().max())
+             for n, (_, g) in cpu.items()}
+    grad_err = max(g_err.values()) / g_scale
+    d_all, d_cond, n_small, n_big = 0.0, 0.0, 0, 0
+    for n, (p, g) in cpu.items():
+        diff = (gpu[n][0] - p).abs()
+        small = g.abs() < GRAD_FLOOR
+        d_all = max(d_all, float(diff.max()))
+        if not bool(small.all()):
+            d_cond = max(d_cond, float(diff[~small].max()))
+        n_small += int(small.sum())
+        n_big += int((diff > PARAM_ATOL).sum())
+    n_params = sum(p.numel() for p, _ in cpu.values())
+    details["train_parity"] = {
+        "loss_cpu": loss_cpu, "loss_card": loss_gpu, "loss_rel": loss_rel,
+        "grad_rel_err": grad_err, "max_dparam": d_all,
+        "max_dparam_grad_above_floor": d_cond, "grad_floor": GRAD_FLOOR,
+        "n_grad_below_floor": n_small, "n_dparam_above_atol": n_big,
+        "n_params": n_params, "grad_scale": g_scale,
+        "grad_err_top": sorted(
+            ({"param": n, "max_abs_err": e,
+              "max_abs_grad": float(cpu[n][1].abs().max())}
+             for n, e in g_err.items()), key=lambda r: -r["max_abs_err"])[:8]}
+    print(f"train step card vs cpu (f32, TF32 off, batch 2 at "
+          f"{spec.input_height}x{spec.input_width}): loss "
+          f"{loss_gpu:.7f} vs {loss_cpu:.7f} (rel {loss_rel:.3g}); grad "
+          f"max |err| / max |g| {grad_err:.3g}; max |dparam| {d_all:.3g} "
+          f"over {n_params} params, {d_cond:.3g} where |g| >= "
+          f"{GRAD_FLOOR:g} ({n_small} below), {n_big} above {PARAM_ATOL:g}",
+          flush=True)
+    for r in details["train_parity"]["grad_err_top"][:3]:
+        print(f"  gradient error {r['max_abs_err']:.3g} in {r['param']} "
+              f"(its max |g| {r['max_abs_grad']:.3g})", flush=True)
+    if not (loss_rel <= LOSS_RTOL and grad_err <= GRAD_RTOL
+            and d_cond <= PARAM_ATOL):
+        raise AssertionError(
+            f"train step parity: loss rel {loss_rel:.3g} (tol {LOSS_RTOL}), "
+            f"grad {grad_err:.3g} (tol {GRAD_RTOL}), dparam {d_cond:.3g} "
+            f"(tol {PARAM_ATOL})")
+
+
+def train_phase(dev, details):
+    """(b) The Trainer at full width, bf16 convs, batch 8: device ms per
+    step, host data ms per batch, peak memory; the loss must fall."""
+    import numpy as np
+    import torch
+
+    from sbb_textline_detection_tpu_torch.models import registry
+    from sbb_textline_detection_tpu_torch.training import data, train
+    from sbb_textline_detection_tpu_torch.utils import synthetic
+
+    spec = registry.DUALHEAD_SPEC
+    it = data.synthetic_batches("dualhead", 8, spec.input_height,
+                                spec.input_width, SEED)
+    pool_was_built = synthetic._PAGE_POOL is not None
+    batches, secs = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        batches.append(next(it))
+        secs.append(time.perf_counter() - t0)
+    if synthetic._PAGE_POOL is None:
+        raise AssertionError("no page crop was drawn: the pool is empty")
+    data_ms = 1e3 * sum(secs[1:]) / (len(secs) - 1)
+    print(f"dual-head data (host, batch 8 at {spec.input_height}x"
+          f"{spec.input_width}): first batch {secs[0]:.2f} s"
+          + ("" if pool_was_built else
+             f" (the page-pool render of {len(synthetic._PAGE_POOL)} "
+             "pages included)")
+          + f", then {data_ms:.1f} ms per batch", flush=True)
+
+    tr = train.Trainer(spec, 3e-4, SEED, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = tr.train(iter(batches[:TRAIN_WARMUP]), TRAIN_WARMUP)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    losses += tr.train(iter(batches[TRAIN_WARMUP:]),
+                       TRAIN_STEPS - TRAIN_WARMUP)
+    end.record()
+    torch.cuda.synchronize()
+    n = TRAIN_STEPS - TRAIN_WARMUP
+    step_ms = start.elapsed_time(end) / n
+    wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    peak = torch.cuda.max_memory_allocated(dev)
+    del batches
+
+    t0 = time.perf_counter()
+    tr.train(it, STREAM_STEPS)
+    stream_ms = 1e3 * (time.perf_counter() - t0) / STREAM_STEPS
+    prof = _profiled(lambda: tr.train(it, PROFILE_STEPS))
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    details["train"] = {
+        "steps": TRAIN_STEPS, "warmup": TRAIN_WARMUP, "batch": 8,
+        "step_ms": step_ms, "step_wall_ms": wall_ms,
+        "data_ms_per_batch": data_ms, "first_batch_s": secs[0],
+        "stream_ms_per_step": stream_ms, "peak_bytes": peak,
+        "losses": losses, "profile": {
+            "steps": PROFILE_STEPS, "wall_s": prof[0], "device_s": prof[1],
+            "top_ops": prof[2][:25]}}
+    print(f"dual-head training (bf16 convs, batch 8 at {spec.input_height}"
+          f"x{spec.input_width}): "
+          f"{step_ms:.2f} ms per step on the card over {n} steps (host "
+          f"wall {wall_ms:.2f} ms), {stream_ms:.1f} ms per step with the "
+          f"data drawn in the loop; peak memory {peak / 2**30:.2f} GiB; "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of the first 10 "
+          f"{first:.4f}, of the last 10 {last:.4f})", flush=True)
+    _print_profile(f"{PROFILE_STEPS} streamed training steps", *prof)
+    if not all(np.isfinite(losses)) or not last < first:
+        raise AssertionError("the training loss did not fall")
+    return tr
+
+
+def serve_trained_phase(dev, details, dual, random_regions):
+    """(c) Save the trained dual-head model and a briefly trained page
+    model, load both through ModelBundle.from_dir, serve one A4 page."""
+    import numpy as np
+
+    from sbb_textline_detection_tpu_torch.models import registry
+    from sbb_textline_detection_tpu_torch.models.runner import ModelBundle
+    from sbb_textline_detection_tpu_torch.ops import radon
+    from sbb_textline_detection_tpu_torch.pipeline.detector import (
+        DEFAULT_CONFIG, TextlineDetector)
+    from sbb_textline_detection_tpu_torch.training import data, train
+    from sbb_textline_detection_tpu_torch.training import eval as layout_eval
+    from sbb_textline_detection_tpu_torch.utils import synthetic
+
+    spec = registry.DEFAULT_SPECS["page"]
+    page = train.Trainer(spec, 3e-4, SEED, device=dev)
+    page_losses = page.train(data.synthetic_batches(
+        "page", 8, spec.input_height, spec.input_width, SEED), PAGE_STEPS)
+    out = os.path.join(ROOT, "build", "smoke_models")
+    os.makedirs(out, exist_ok=True)
+    names = DEFAULT_CONFIG.model_names
+    page.save(os.path.join(out, names.page + ".npz"))
+    dual.save(os.path.join(out, names.dualhead + ".npz"))
+    models = ModelBundle.from_dir(out, DEFAULT_CONFIG.runtime, dev, names)
+    det = TextlineDetector(models, DEFAULT_CONFIG)
+    img, layout = synthetic.make_page(np.random.default_rng(SEED), 3508,
+                                      2480, skew_deg=SKEWS[0])
+    radon.launches = 0
+    t0 = time.time()
+    res = det.process_image(img, "a4_trained.png")
+    sec = time.time() - t0
+    launches = radon.launches
+    score = layout_eval.evaluate_layout(res, layout)
+    details["serve_trained"] = {
+        "page_losses": page_losses, "seconds": sec,
+        "regions": len(res.contours), "random_weight_regions":
+        random_regions, "radon_launches": launches,
+        "degraded": res.degraded, "region_recall": score.region_recall,
+        "region_precision": score.region_precision,
+        "timings": res.timings}
+    print(f"trained checkpoints ({PAGE_STEPS} page steps, loss "
+          f"{page_losses[0]:.4f} -> {page_losses[-1]:.4f}; {TRAIN_STEPS} "
+          f"dual-head steps) serve a4_trained.png: {sec:.2f} s, "
+          f"{len(res.contours)} regions (random weights: "
+          f"{', '.join(map(str, random_regions))}), region recall "
+          f"{score.region_recall:.3f}, precision "
+          f"{score.region_precision:.3f}, {launches} radon launches",
+          flush=True)
+    if det.degraded:
+        raise AssertionError("the page served by the trained checkpoints "
+                             "degraded")
 
 
 def main() -> int:
@@ -317,6 +551,10 @@ def main() -> int:
     unet_phase(dev, details)
     launches, det, pages = pipeline_phase(dev, details)
     profile_phase(det, pages[1], details)
+    train_parity_phase(dev, details)
+    dual = train_phase(dev, details)
+    serve_trained_phase(dev, details, dual,
+                        [p["regions"] for p in details["pages"]])
 
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)),

@@ -5,7 +5,8 @@
 `-i` may be a directory (pages run one after another with the models
 loaded once); `--synthetic-models` uses randomly initialized models;
 `-m` reads the page and dual-head `.npz` checkpoints of the JAX package's
-format. Runs on the first CUDA card when there is one, else on the CPU.
+format. `--device` (default `cuda`) picks the device; without a CUDA card
+the command stops unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -17,6 +18,27 @@ import time
 import click
 
 from sbb_textline_detection_tpu.core.config import DEFAULT_CONFIG
+
+
+def _device(ctx, param, name: str):
+    import torch
+
+    try:
+        device = torch.device(name)
+    except RuntimeError as exc:
+        raise click.BadParameter(str(exc), ctx, param) from exc
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise click.BadParameter(
+            f"{name!r} asked for, but no CUDA card is available; pass "
+            "--device cpu to run on the CPU", ctx, param)
+    return device
+
+
+# the port runs where it is told: a missing card stops the command (exit
+# 2) instead of moving the work to the CPU
+device_option = click.option(
+    "--device", default="cuda", show_default=True, callback=_device,
+    help="torch device to run on (cuda, cuda:N or cpu)")
 
 
 @click.command()
@@ -31,14 +53,12 @@ from sbb_textline_detection_tpu.core.config import DEFAULT_CONFIG
               help="directory of models (.npz checkpoints)")
 @click.option("--synthetic-models", is_flag=True, default=False,
               help="use randomly initialized models (smoke runs)")
-def main(image, out, model, synthetic_models):
-    import torch
-
+@device_option
+def main(image, out, model, synthetic_models, device):
     from sbb_textline_detection_tpu_torch.models.runner import ModelBundle
     from sbb_textline_detection_tpu_torch.pipeline.detector import (
         TextlineDetector, load_image)
 
-    device = "cuda" if torch.cuda.is_available() else "cpu"
     if synthetic_models:
         models = ModelBundle.random_init(DEFAULT_CONFIG.runtime,
                                          device=device)

@@ -1,11 +1,12 @@
 """Checkpoint I/O and parameter init for the port's TpuUnet.
 
-`load` reads the JAX package's `.npz` format (models/checkpoint.py:29/41
-there: the flattened Flax variable tree under "::"-joined keys plus a JSON
-`__meta__` entry holding the ModelSpec) with numpy alone;
+`load` and `save` read and write the JAX package's `.npz` format
+(models/checkpoint.py:29/41 there: the flattened Flax variable tree under
+"::"-joined keys plus a JSON `__meta__` entry holding the ModelSpec) with
+numpy alone, so either package loads what the other saved;
 `params_from_flax` turns such a tree into a state_dict of
-models/unet.TpuUnet; `random_init` draws a fresh state_dict with Flax's
-own initialisers.
+models/unet.TpuUnet and `flax_from_params` is its inverse; `random_init`
+draws a fresh state_dict with Flax's own initialisers.
 """
 
 from __future__ import annotations
@@ -21,6 +22,26 @@ from sbb_textline_detection_tpu_torch.models.registry import ModelSpec
 
 _META_KEY = "__meta__"
 _SEP = "::"
+
+
+def save(path: str, spec: ModelSpec, state_dict) -> None:
+    """Write a TpuUnet state_dict as a `.npz` checkpoint of the JAX
+    package's format: the keys, shapes and dtypes of a Flax-saved one of
+    the same spec."""
+    arrays = {}
+
+    def flatten(prefix, node):
+        for k, v in node.items():
+            key = f"{prefix}{_SEP}{k}" if prefix else k
+            if isinstance(v, dict):
+                flatten(key, v)
+            else:
+                arrays[key] = v
+
+    flatten("", flax_from_params(state_dict))
+    arrays[_META_KEY] = np.frombuffer(
+        json.dumps(spec.to_meta()).encode("utf-8"), dtype=np.uint8)
+    np.savez(path, **arrays)
 
 
 def load(path: str) -> Tuple[ModelSpec, dict]:
@@ -63,6 +84,35 @@ def params_from_flax(variables) -> Dict[str, torch.Tensor]:
         sd[f"{name}.norm.bias"] = torch.from_numpy(
             np.asarray(gn["bias"], np.float32).copy())
     return sd
+
+
+def flax_from_params(state_dict) -> dict:
+    """TpuUnet state_dict -> Flax variables {"params": {...}} of float32
+    numpy arrays: the exact inverse of `params_from_flax` (conv kernels
+    OIHW -> HWIO under `<block>/Conv_0/kernel`, GroupNorm weight/bias as
+    `GroupNorm_0/{scale,bias}`, the 1x1 head as `head/{kernel,bias}`)."""
+    def arr(t):  # a copy: never a view of a live parameter
+        return t.detach().to("cpu", torch.float32).numpy().copy()
+
+    params: dict = {}
+    for key, t in state_dict.items():
+        name, rest = key.split(".", 1)
+        if name == "head":
+            leaf = "kernel" if rest == "weight" else "bias"
+            v = arr(t)
+            params.setdefault("head", {})[leaf] = (
+                np.ascontiguousarray(v.transpose(2, 3, 1, 0))
+                if leaf == "kernel" else v)
+        elif rest == "conv.weight":
+            params.setdefault(name, {})["Conv_0"] = {
+                "kernel": np.ascontiguousarray(arr(t).transpose(2, 3, 1, 0))}
+        elif rest in ("norm.weight", "norm.bias"):
+            leaf = "scale" if rest == "norm.weight" else "bias"
+            params.setdefault(name, {}).setdefault(
+                "GroupNorm_0", {})[leaf] = arr(t)
+        else:
+            raise KeyError(f"unexpected TpuUnet parameter {key!r}")
+    return {"params": params}
 
 
 def random_init(spec: ModelSpec,
