@@ -9,11 +9,16 @@ Phases (any failure raises and the script exits non-zero):
      the host geometry library (native/, as `pip install .` does), which
      must load: the pages are timed on the native host path;
   3. the kernel against its plain PyTorch version at the main path's
-     shapes (S = 512, one 8-slot group x 110 angles = 880 pairs, binary
-     canvases at ~20% fill; rtol 1e-4, atol 1e-2), both timed with CUDA
-     events; the resident deskew chain on the card against the same chain
-     on the CPU (plain version) on drawn text lines; the dual-head U-Net
-     forward on the card against the CPU in float32;
+     shapes (8 and 2 regions x 110 angles at S = 512, 8 x 110 at S = 256)
+     on binary canvases at ~20% fill and on text-like bands (rtol 1e-4,
+     atol 1e-2); on the noise the kernel, the plain version and the
+     library's matrix form (two float32 torch.bmm per pair, A and B built
+     in advance; timed only) are timed with CUDA events beside the bound
+     (canvas and output bytes at 3.35 TB/s against 11 float32 operations
+     per set pixel and angle at 67 TFLOP/s); the resident deskew chain on
+     the card against the same chain on the CPU (plain version) on drawn
+     text lines; the dual-head U-Net forward on the card against the CPU
+     in float32;
   4. a full-width random-weight bundle (bf16 compute, float32 GroupNorm,
      TF32 off) runs process_batch over 3 synthetic A4 pages (3508x2480,
      skews 0, 8 and -15 degrees): no page may degrade, the Radon kernel
@@ -35,7 +40,8 @@ The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. With --details PATH, the run's details
 (ptxas report, per-page stage timings, kernel times) are written there as
 JSON. After the timed pages, the second page runs once more under
-torch.profiler for its device time by op (its launches are not counted).
+torch.profiler for its device time by op and the Radon kernel's device
+time (its launches are not counted in the kernel line).
 """
 
 import argparse
@@ -102,38 +108,121 @@ def build_native(details):
           flush=True)
 
 
+# peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): HBM bytes/s
+# and float32 operations/s outside the tensor cores
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+# f32 operations per set (pixel, angle) pair of the Radon sweep: 4 weight
+# products, 1 add, 3 value products, 3 accumulates
+RADON_OPS_PER_PAIR = 11
+# the main path's shapes: (regions, canvas side); 110 angles each
+RADON_SHAPES = ((8, 512), (2, 512), (8, 256))
+
+
+def _radon_bound(canv, n_angles):
+    """Least time (ms) for the sweep on these inputs, and its binding side:
+    each canvas byte read once, each output float written once, against
+    11 f32 operations per set (pixel, angle) pair."""
+    r, s = int(canv.shape[0]), int(canv.shape[1])
+    nbytes = r * s * s + 4 * n_angles + 4 * r * n_angles * s
+    ops = RADON_OPS_PER_PAIR * int((canv != 0).sum()) * n_angles
+    by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_S, 1e3 * ops / F32_OPS_S
+    return max(by_bytes, by_ops), ("bytes" if by_bytes > by_ops
+                                   else "operations")
+
+
+def _radon_library_ms(canv, cosv, sinv):
+    """The matrix form as the library computes it: two float32 torch.bmm
+    per pair (TF32 off), with A, B and the canvases built in advance."""
+    import torch
+
+    from sbb_textline_detection_tpu_torch.ops import radon
+
+    r, s = int(canv.shape[0]), int(canv.shape[1])
+    n = int(cosv.shape[0])
+    ridx = torch.arange(r, device=canv.device).repeat_interleave(n)
+    aidx = torch.arange(n, device=canv.device).repeat(r)
+    c = float(s // 2)
+    idx = torch.arange(s, dtype=torch.float32, device=canv.device)
+    fy = cosv[aidx][:, None] * (idx - c) + c
+    gx = -sinv[aidx][:, None] * (idx - c) + c
+    A = (1.0 - (idx[None, :, None] - fy[:, None, :]).abs()).clamp(min=0.0)
+    Bt = (1.0 - (idx[None, :, None] - gx[:, None, :]).abs()).clamp(
+        min=0.0).transpose(1, 2).contiguous()
+    img = canv[ridx].to(torch.float32)
+    with radon.full_f32_matmul():
+        ms = _cuda_time(lambda: torch.bmm(torch.bmm(A, img), Bt), 3)
+    del A, Bt, img
+    torch.cuda.empty_cache()
+    return ms
+
+
 def kernel_phase(dev, details):
-    """Kernel vs plain version at S = 512, 880 pairs."""
+    """The kernel against its plain version at the main path's shapes
+    (8 and 2 regions x 110 angles at S = 512, 8 x 110 at S = 256) on 20 %
+    noise and on text-like bands (rtol 1e-4, atol 1e-2); on the noise, the
+    kernel, the plain version and the library's matrix form timed with
+    CUDA events, beside the bound. The first shape is the kernel's line."""
     import numpy as np
     import torch
 
     from sbb_textline_detection_tpu_torch.ops import radon
 
-    s, slots, n_angles = 512, 8, 110
-    rng = np.random.default_rng(SEED)
-    canv = torch.from_numpy(
-        (rng.uniform(size=(slots, s, s)) < 0.2).astype(np.uint8)).to(dev)
     angles = torch.from_numpy(np.concatenate([
         np.linspace(-25, 25, 80), np.linspace(-90, -50, 30)]).astype(
             np.float32)).to(dev)
-    ridx = torch.arange(slots, device=dev).repeat_interleave(n_angles)
-    aidx = torch.arange(n_angles, device=dev).repeat(slots)
     cosv, sinv = radon.angle_cos_sin(angles)
-    got = radon.radon_pairs(canv, angles, ridx, aidx, s)
-    want = radon.radon_pairs_plain(canv, cosv, sinv, ridx, aidx, s)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-2)
-    ms = _cuda_time(lambda: radon.radon_pairs(canv, angles, ridx, aidx, s),
-                    20)
-    plain_ms = _cuda_time(lambda: radon.radon_pairs_plain(
-        canv, cosv, sinv, ridx, aidx, s), 5)
-    details["radon"] = {"pairs": int(ridx.shape[0]), "s": s,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-    print(f"radon kernel: {ridx.shape[0]} pairs at S={s}: {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, max |err| {err:.3g} (rtol 1e-4, "
-          f"atol 1e-2)", flush=True)
-    return err, ms, plain_ms
+    n_angles = int(angles.shape[0])
+    rows = []
+    for r, s in RADON_SHAPES:
+        rng = np.random.default_rng(SEED)
+        noise = (rng.uniform(size=(r, s, s)) < 0.2).astype(np.uint8)
+        for kind, canv in (("noise", noise), ("lines", _text_bands(r, s))):
+            canv = torch.from_numpy(canv).to(dev)
+            got = radon.radon_pairs(canv, angles)
+            want = radon.radon_pairs_plain(canv, cosv, sinv)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-2)
+            bound_ms, bound_by = _radon_bound(canv, n_angles)
+            row = {"regions": r, "s": s, "pairs": r * n_angles,
+                   "canvas": kind, "set_pixels": int((canv != 0).sum()),
+                   "max_abs_err": err, "bound_ms": bound_ms,
+                   "bound_by": bound_by,
+                   "ms": _cuda_time(lambda: radon.radon_pairs(canv, angles),
+                                    50)}
+            if kind == "noise":
+                row["plain_ms"] = _cuda_time(lambda: radon.radon_pairs_plain(
+                    canv, cosv, sinv), 3)
+                row["library_ms"] = _radon_library_ms(canv, cosv, sinv)
+            rows.append(row)
+            print(f"radon kernel, {row['pairs']} pairs at S={s} on {kind}: "
+                  f"{row['ms']:.4f} ms"
+                  + (f", plain {row['plain_ms']:.3f} ms, library (2 f32 "
+                     f"bmm) {row['library_ms']:.3f} ms" if kind == "noise"
+                     else "")
+                  + f", bound {bound_ms:.3g} ms by {bound_by}, max |err| "
+                  f"{err:.3g} (rtol 1e-4, atol 1e-2)", flush=True)
+    details["radon"] = rows
+    return rows[0]
+
+
+def _text_bands(r, s):
+    """Mostly empty canvases with skewed bars, like the sweep's real
+    inputs (tests/test_torch_radon_cuda.py draws the same)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 5)
+    canv = np.zeros((r, s, s), np.uint8)
+    xs = np.arange(s // 4, 3 * s // 4)
+    for i in range(r):
+        t = np.tan(np.deg2rad(rng.uniform(-20, 20)))
+        for y0 in range(s // 4, 3 * s // 4, 24):
+            for k in range(8):
+                ys = np.round(y0 + k + t * (xs - s / 2)).astype(int)
+                ok = (ys >= 0) & (ys < s)
+                canv[i, ys[ok], xs[ok]] = 1
+    return canv
 
 
 def deskew_phase(dev, details):
@@ -261,7 +350,8 @@ def pipeline_phase(dev, details):
 
 def _profiled(fn):
     """torch.profiler over fn(): its wall, the summed time of its device
-    kernels, and the host ops whose kernels take most device time."""
+    kernels, the host ops whose kernels take most device time, and the
+    device ms of each kernel by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -287,10 +377,12 @@ def _profiled(fn):
                   key=lambda r: -r["device_ms"])
     if device <= 0:
         raise RuntimeError("torch.profiler recorded no device kernels")
-    return wall, device, rows
+    kernels = {e.key: device_ms(e) for e in events
+               if e.device_type == DeviceType.CUDA}
+    return wall, device, rows, kernels
 
 
-def _print_profile(what, wall, device, rows):
+def _print_profile(what, wall, device, rows, kernels):
     print(f"profiled {what}: wall {wall:.4f} s under the profiler, "
           f"device kernel time {device:.4f} s, idle share "
           f"{1 - device / wall:.3f}", flush=True)
@@ -300,11 +392,23 @@ def _print_profile(what, wall, device, rows):
 
 
 def profile_phase(det, page, details):
-    """One more pass of `page` under torch.profiler."""
-    wall, device, rows = _profiled(lambda: det.process_image(*page))
+    """One more pass of `page` under torch.profiler; the Radon kernel's
+    device ms on it."""
+    from sbb_textline_detection_tpu_torch.ops import radon
+
+    before = radon.launches
+    wall, device, rows, kernels = _profiled(
+        lambda: det.process_image(*page))
+    radon_ms = sum(ms for k, ms in kernels.items() if "radon" in k)
     details["profile"] = {"page": page[1], "wall_s": wall,
-                          "device_s": device, "top_ops": rows[:25]}
-    _print_profile(page[1], wall, device, rows)
+                          "device_s": device, "top_ops": rows[:25],
+                          "radon_kernel_ms": radon_ms,
+                          "radon_launches": radon.launches - before}
+    _print_profile(page[1], wall, device, rows, kernels)
+    print(f"  the Radon kernel: {radon_ms:.3f} ms of device time over "
+          f"{radon.launches - before} launches on this page", flush=True)
+    if radon_ms <= 0:
+        raise RuntimeError("the profile shows no Radon kernel time")
 
 
 def train_parity_phase(dev, details):
@@ -546,7 +650,7 @@ def main() -> int:
           flush=True)
     build_native(details)
 
-    err, ms, plain_ms = kernel_phase(dev, details)
+    kernel = kernel_phase(dev, details)
     deskew_phase(dev, details)
     unet_phase(dev, details)
     launches, det, pages = pipeline_phase(dev, details)
@@ -565,8 +669,10 @@ def main() -> int:
         "name": "radon_pairs", "route": "cuda",
         "source": "sbb_textline_detection_tpu_torch/csrc/radon.cu",
         "replaces": "sbb_textline_detection_tpu/ops/pallas_radon.py:72",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms}]}), flush=True)
+        "launches": launches, "max_abs_err": kernel["max_abs_err"],
+        "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
+        "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
+        "library_ms": kernel["library_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -17,7 +17,7 @@ import time
 
 import click
 
-from sbb_textline_detection_tpu.core.config import DEFAULT_CONFIG
+from sbb_textline_detection_tpu_torch.core.config import DEFAULT_CONFIG
 
 
 def _device(ctx, param, name: str):

@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from sbb_textline_detection_tpu.core.config import RuntimeConfig
+from sbb_textline_detection_tpu_torch.core.config import RuntimeConfig
 from sbb_textline_detection_tpu_torch.models import checkpoint, registry
 from sbb_textline_detection_tpu_torch.models.registry import ModelSpec
 from sbb_textline_detection_tpu_torch.ops import morphology
@@ -58,7 +58,7 @@ class SegmentationModel:
     """One loaded TpuUnet on a device."""
 
     def __init__(self, spec, state_dict, runtime: RuntimeConfig | None = None,
-                 device="cpu", dtype: torch.dtype | None = None):
+                 device="cuda", dtype: torch.dtype | None = None):
         self.spec = _as_spec(spec)
         self.runtime = runtime or RuntimeConfig()
         self.device = torch.device(device)
@@ -272,7 +272,7 @@ class ModelBundle:
 
     @staticmethod
     def random_init(runtime: RuntimeConfig | None = None, seed: int = 0,
-                    device="cpu", dtype: torch.dtype | None = None,
+                    device="cuda", dtype: torch.dtype | None = None,
                     page_spec=None, dual_spec=None) -> "ModelBundle":
         """Randomly initialized bundle (tests / smoke runs): each model's
         weights are drawn from torch.Generator().manual_seed(seed)."""
@@ -289,7 +289,7 @@ class ModelBundle:
     def from_jax_variables(page_variables, dual_variables, page_spec=None,
                            dual_spec=None,
                            runtime: RuntimeConfig | None = None,
-                           device="cpu", dtype: torch.dtype | None = None
+                           device="cuda", dtype: torch.dtype | None = None
                            ) -> "ModelBundle":
         """Bundle from Flax variable trees (nested dicts of arrays) of the
         page model and the dual-head model."""
@@ -302,13 +302,13 @@ class ModelBundle:
 
     @staticmethod
     def from_dir(model_dir: str, runtime: RuntimeConfig | None = None,
-                 device="cpu", model_names=None,
+                 device="cuda", model_names=None,
                  dtype: torch.dtype | None = None) -> "ModelBundle":
         """`<model_dir>/<page>.npz` + `<model_dir>/<dualhead>.npz` in the
         JAX package's checkpoint format."""
         import os
 
-        from sbb_textline_detection_tpu.core.config import ModelNames
+        from sbb_textline_detection_tpu_torch.core.config import ModelNames
 
         names = model_names or ModelNames()
         page_spec, page_vars = checkpoint.load(

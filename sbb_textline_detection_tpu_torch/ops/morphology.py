@@ -111,7 +111,7 @@ def _binary_foreground_value(img: np.ndarray):
 def _native_dilate(img: np.ndarray, kernel_size: int, iterations: int):
     """Binary 2-D dilation through the native library; None if not
     applicable (grayscale input or library unavailable)."""
-    from sbb_textline_detection_tpu import native_bridge
+    from sbb_textline_detection_tpu_torch import native_bridge
 
     if not native_bridge.available():
         return None

@@ -40,7 +40,7 @@ def gaussian_filter1d_host(y: np.ndarray, sigma: float, truncate: float = 4.0) -
     n = y.shape[0]
     # scipy 'reflect' == numpy 'symmetric' (edge value repeated):  d c b a | a b c d
     ypad = np.pad(y, radius, mode="symmetric")
-    from sbb_textline_detection_tpu import native_bridge
+    from sbb_textline_detection_tpu_torch import native_bridge
 
     if native_bridge.available():
         out = native_bridge.correlate1d_sym(ypad, n, w)

@@ -3,7 +3,8 @@ kernel (csrc/radon.cu) and its plain PyTorch version.
 
 Counterpart of `_radon_pairs` (sbb_textline_detection_tpu/pipeline/
 deskew.py:120) and of the Pallas kernel it reaches on the TPU
-(ops/pallas_radon.py:72). For each flattened (region, angle) pair k:
+(ops/pallas_radon.py:72). For each pair k = i * A + j of the full
+region x angle product (region i, angle j of A):
 
     P_k[r] = sum_{s+u = r+S/2} (A_k I_k B_k^T)[s, u]
     A[s, y] = hat(s - (cos(a)(y-c) + c)),  B[u, x] = hat(u - (-sin(a)(x-c) + c))
@@ -96,9 +97,9 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(build())
         vp = ctypes.c_void_p
-        lib.radon_pairs_launch.argtypes = [vp, vp, vp, vp, vp, vp,
+        lib.radon_sweep_launch.argtypes = [vp, vp, vp, vp, ctypes.c_int,
                                            ctypes.c_int, ctypes.c_int, vp]
-        lib.radon_pairs_launch.restype = ctypes.c_int
+        lib.radon_sweep_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -108,18 +109,22 @@ def _hat(x: torch.Tensor) -> torch.Tensor:
 
 
 def radon_pairs_plain(canvases: torch.Tensor, cosv: torch.Tensor,
-                      sinv: torch.Tensor, ridx: torch.Tensor,
-                      aidx: torch.Tensor, s: int) -> torch.Tensor:
-    """The matrix form of deskew.py:130-154 (JAX package): A I B^T per
-    pair, then P[r] = D[r + S/2] with D[t] = sum_s U[s, t-s]."""
+                      sinv: torch.Tensor) -> torch.Tensor:
+    """The matrix form of deskew.py:130-154 (JAX package) over the full
+    region x angle product: A I B^T per pair, then P[r] = D[r + S/2] with
+    D[t] = sum_s U[s, t-s]."""
     dev = canvases.device
+    n_regions, s = int(canvases.shape[0]), int(canvases.shape[1])
+    n_angles = int(cosv.shape[0])
+    ridx = torch.arange(n_regions, device=dev).repeat_interleave(n_angles)
+    aidx = torch.arange(n_angles, device=dev).repeat(n_regions)
     c = float(s // 2)
     idx = torch.arange(s, dtype=torch.float32, device=dev)
     out = []
     with full_f32_matmul():
         for k0 in range(0, ridx.shape[0], _PLAIN_CHUNK):
-            ri = ridx[k0:k0 + _PLAIN_CHUNK].long()
-            ai = aidx[k0:k0 + _PLAIN_CHUNK].long()
+            ri = ridx[k0:k0 + _PLAIN_CHUNK]
+            ai = aidx[k0:k0 + _PLAIN_CHUNK]
             a, b = cosv[ai], sinv[ai]
             fy = a[:, None] * (idx - c) + c                  # (K, S)
             A = _hat(idx[None, :, None] - fy[:, None, :])    # A[k, s, y]
@@ -139,15 +144,15 @@ def radon_pairs_plain(canvases: torch.Tensor, cosv: torch.Tensor,
 
 
 def radon_pairs_cuda(canvases: torch.Tensor, cosv: torch.Tensor,
-                     sinv: torch.Tensor, ridx: torch.Tensor,
-                     aidx: torch.Tensor, s: int) -> torch.Tensor:
+                     sinv: torch.Tensor) -> torch.Tensor:
     """Launch csrc/radon.cu on the canvases' device and its current
-    stream; one block per pair."""
+    stream over the full region x angle product."""
     global launches
     if canvases.dtype != torch.uint8 or canvases.ndim != 3 \
-            or tuple(canvases.shape[1:]) != (s, s):
-        raise ValueError(f"canvases must be (R, {s}, {s}) uint8, got "
+            or canvases.shape[1] != canvases.shape[2]:
+        raise ValueError(f"canvases must be (R, S, S) uint8, got "
                          f"{tuple(canvases.shape)} {canvases.dtype}")
+    s = int(canvases.shape[1])
     if s % 16 != 0:
         raise ValueError(f"canvas side {s} must be a multiple of 16")
     canvases = canvases.contiguous()
@@ -156,21 +161,19 @@ def radon_pairs_cuda(canvases: torch.Tensor, cosv: torch.Tensor,
     dev = canvases.device
     cosv = cosv.to(device=dev, dtype=torch.float32).contiguous()
     sinv = sinv.to(device=dev, dtype=torch.float32).contiguous()
-    ridx = ridx.to(device=dev, dtype=torch.int32).contiguous()
-    aidx = aidx.to(device=dev, dtype=torch.int32).contiguous()
-    n = int(ridx.shape[0])
-    if aidx.shape[0] != n:
-        raise ValueError("ridx and aidx differ in length")
-    out = torch.empty((n, s), dtype=torch.float32, device=dev)
-    if n == 0:
+    if cosv.shape != sinv.shape or cosv.ndim != 1:
+        raise ValueError("cosv and sinv must be (A,) of one length")
+    n_regions, n_angles = int(canvases.shape[0]), int(cosv.shape[0])
+    out = torch.empty((n_regions * n_angles, s), dtype=torch.float32,
+                      device=dev)
+    if out.numel() == 0:
         return out
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.radon_pairs_launch(canvases.data_ptr(), cosv.data_ptr(),
-                                     sinv.data_ptr(), ridx.data_ptr(),
-                                     aidx.data_ptr(), out.data_ptr(), n, s,
-                                     stream)
+        err = lib.radon_sweep_launch(canvases.data_ptr(), cosv.data_ptr(),
+                                     sinv.data_ptr(), out.data_ptr(),
+                                     n_regions, n_angles, s, stream)
     if err != 0:
         raise RuntimeError(f"radon_pairs kernel launch failed: CUDA error "
                            f"{err}")
@@ -184,16 +187,16 @@ def angle_cos_sin(angles: torch.Tensor):
     return torch.cos(rad), torch.sin(rad)
 
 
-def radon_pairs(canvases: torch.Tensor, angles: torch.Tensor,
-                ridx: torch.Tensor, aidx: torch.Tensor, s: int
+def radon_pairs(canvases: torch.Tensor, angles: torch.Tensor
                 ) -> torch.Tensor:
-    """(R, S, S) binary uint8 canvases + (A,) float32 angles in degrees +
-    flattened (F,) (region, angle) pair indices -> (F, S) float32 rotated
-    projections. CPU tensors: the plain version; CUDA tensors: the kernel, or an exception."""
+    """(R, S, S) binary uint8 canvases + (A,) float32 angles in degrees ->
+    (R * A, S) float32 rotated projections, row r * A + a for region r at
+    angle a. CPU tensors: the plain version; CUDA tensors: the kernel, or
+    an exception."""
     cosv, sinv = angle_cos_sin(angles)
     if canvases.device.type == "cpu":
-        return radon_pairs_plain(canvases, cosv, sinv, ridx, aidx, s)
+        return radon_pairs_plain(canvases, cosv, sinv)
     if canvases.device.type != "cuda":
         raise ValueError(f"radon_pairs: unsupported device "
                          f"{canvases.device}")
-    return radon_pairs_cuda(canvases, cosv, sinv, ridx, aidx, s)
+    return radon_pairs_cuda(canvases, cosv, sinv)

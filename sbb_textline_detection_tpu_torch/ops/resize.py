@@ -21,7 +21,7 @@ def resize_nearest_host(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     ys = _nearest_indices(out_h, img.shape[0])
     xs = _nearest_indices(out_w, img.shape[1])
     if img.dtype == np.uint8 and img.ndim in (2, 3):
-        from sbb_textline_detection_tpu import native_bridge
+        from sbb_textline_detection_tpu_torch import native_bridge
 
         if native_bridge.available():
             return native_bridge.resize_nearest_u8(img, ys, xs)

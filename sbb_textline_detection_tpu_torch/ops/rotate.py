@@ -26,7 +26,7 @@ def rotate_image_host(img: np.ndarray, angle_deg: float, order: int = 3) -> np.n
     with cv2's inverse map and replicate border; order 0 (nearest), 1
     (bilinear) or 3 (Keys bicubic). Dispatches to the native library when
     it is built; the numpy path is the parity oracle."""
-    from sbb_textline_detection_tpu import native_bridge
+    from sbb_textline_detection_tpu_torch import native_bridge
 
     if native_bridge.available() and order in (0, 1, 3):
         return native_bridge.rotate(img, angle_deg, order)

@@ -26,7 +26,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from sbb_textline_detection_tpu.core.config import DeskewConfig
+from sbb_textline_detection_tpu_torch.core.config import DeskewConfig
 from sbb_textline_detection_tpu_torch.ops import morphology, profiles, radon
 
 _BUCKETS = (256, 512, 1024, 1536, 2048)
@@ -175,9 +175,7 @@ def _resident_chain(mask, boxes, cy, cx, angles, *, B, ac_n, s, cfg,
     ok = (cy_t >= 0)[:, :, None] & (cx_t >= 0)[:, None, :]
     canv = torch.where(ok, canv, torch.zeros_like(canv))
 
-    ridx = torch.arange(B, device=dev).repeat_interleave(a_all)
-    aidx = torch.arange(a_all, device=dev).repeat(B)
-    P = radon.radon_pairs(canv, angles, ridx, aidx, s)
+    P = radon.radon_pairs(canv, angles)
     vs = _score_profiles_impl(
         P, sigma=float(cfg.sigma),
         multiplier=float(cfg.peak_threshold_multiplier),

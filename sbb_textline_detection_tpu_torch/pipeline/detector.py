@@ -25,9 +25,9 @@ from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from sbb_textline_detection_tpu.core.config import (DEFAULT_CONFIG,
+from sbb_textline_detection_tpu_torch.core.config import (DEFAULT_CONFIG,
                                                     PipelineConfig)
-from sbb_textline_detection_tpu.pagexml import writer as pagexml_writer
+from sbb_textline_detection_tpu_torch.pagexml import writer as pagexml_writer
 from sbb_textline_detection_tpu_torch.models.runner import ModelBundle
 from sbb_textline_detection_tpu_torch.pipeline import order as order_mod
 from sbb_textline_detection_tpu_torch.pipeline import stages

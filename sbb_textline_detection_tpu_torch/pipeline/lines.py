@@ -30,8 +30,8 @@ import warnings
 
 import numpy as np
 
-from sbb_textline_detection_tpu.core.config import LineSplitConfig
-from sbb_textline_detection_tpu.ops import contours as contour_ops
+from sbb_textline_detection_tpu_torch.core.config import LineSplitConfig
+from sbb_textline_detection_tpu_torch.ops import contours as contour_ops
 from sbb_textline_detection_tpu_torch.ops import profiles
 from sbb_textline_detection_tpu_torch.ops.rotate import rotation_matrix_host
 

@@ -13,8 +13,8 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from sbb_textline_detection_tpu.core.config import ReadingOrderConfig
-from sbb_textline_detection_tpu.ops import contours as contour_ops
+from sbb_textline_detection_tpu_torch.core.config import ReadingOrderConfig
+from sbb_textline_detection_tpu_torch.ops import contours as contour_ops
 from sbb_textline_detection_tpu_torch.ops import profiles
 
 

@@ -9,8 +9,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from sbb_textline_detection_tpu.core.config import PipelineConfig
-from sbb_textline_detection_tpu.ops import contours as contour_ops
+from sbb_textline_detection_tpu_torch.core.config import PipelineConfig
+from sbb_textline_detection_tpu_torch.ops import contours as contour_ops
 from sbb_textline_detection_tpu_torch.ops import morphology
 from sbb_textline_detection_tpu_torch.ops import resize as resize_ops
 from sbb_textline_detection_tpu_torch.ops import rotate as rotate_ops

@@ -87,7 +87,7 @@ def _load_train_state(path: str, model, optimizer) -> int:
 def main(role, out, images, labels, steps, batch, lr, seed, log_every,
          save_every, resume, device):
     """Train a pipeline segmentation model and save its checkpoint."""
-    from sbb_textline_detection_tpu.core.config import DEFAULT_CONFIG
+    from sbb_textline_detection_tpu_torch.core.config import DEFAULT_CONFIG
     from sbb_textline_detection_tpu_torch.models import checkpoint, registry
     from sbb_textline_detection_tpu_torch.training import data as data_mod
     from sbb_textline_detection_tpu_torch.training import train

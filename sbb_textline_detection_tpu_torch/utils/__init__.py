@@ -3,6 +3,6 @@ def host_library_available() -> bool:
     `make -C native` or `pip install .`) is loaded. Without it contours, the
     line split and the profile smoothing run in their bit-exact but much
     slower numpy versions."""
-    from sbb_textline_detection_tpu import native_bridge
+    from sbb_textline_detection_tpu_torch import native_bridge
 
     return native_bridge.available()

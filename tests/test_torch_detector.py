@@ -59,7 +59,8 @@ def bundles():
         jb = jrunner.ModelBundle(jrunner.SegmentationModel(PAGE_TINY, pv, rt),
                                  dual, dual)
         tb = ModelBundle.from_jax_variables(pv, dv, PAGE_TINY, DUAL_TINY,
-                                            runtime=rt, dtype=torch.float32)
+                                            runtime=rt, device="cpu",
+                                            dtype=torch.float32)
         yield jb, tb
     finally:
         mp.undo()

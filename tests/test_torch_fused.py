@@ -40,7 +40,7 @@ def models():
         jm = jrunner.SegmentationModel(DUAL_TINY, dv, RT)
         tm = runner.SegmentationModel(DUAL_TINY,
                                       checkpoint.params_from_flax(dv), RT,
-                                      dtype=torch.float32)
+                                      device="cpu", dtype=torch.float32)
         yield jm, tm
     finally:
         mp.undo()
@@ -156,6 +156,6 @@ def test_predict_small_prescaled_matches_jax():
     srt = np.sort(logits, -1)
     assert (srt[..., -1] - srt[..., -2]).min() > 1e-4
     tm = runner.SegmentationModel(spec, checkpoint.params_from_flax(pv), RT,
-                                  dtype=torch.float32)
+                                  device="cpu", dtype=torch.float32)
     np.testing.assert_array_equal(tm.predict_small_prescaled(small),
                                   np.argmax(logits, -1).astype(np.uint8))

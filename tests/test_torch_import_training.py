@@ -1,7 +1,7 @@
-"""The port's training path runs with JAX, Flax and Optax blocked: the
-training modules import, the four synthetic batch functions run at a size
-under 224 px, one Trainer step runs on the CPU, and the re-exported
-evaluation helpers work."""
+"""The port's training path runs with JAX, Flax, Optax and the JAX package
+blocked: the training modules import, the four synthetic batch functions
+run at a size under 224 px, one Trainer step runs on the CPU, and the
+copied evaluation helpers work."""
 
 import os
 import pathlib
@@ -12,7 +12,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 CODE = """
 import sys
-for m in ('jax', 'jaxlib', 'flax', 'optax'):
+for m in ('jax', 'jaxlib', 'flax', 'optax', 'sbb_textline_detection_tpu'):
     sys.modules[m] = None
 import numpy as np
 import torch

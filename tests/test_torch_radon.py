@@ -34,9 +34,8 @@ def test_plain_matches_jax_einsum(s):
     want = np.asarray(jdeskew._radon_pairs(
         jnp.asarray(canv, jnp.float32), jnp.asarray(angles),
         jnp.asarray(ridx), jnp.asarray(aidx), s, 8, False))
-    got = radon.radon_pairs(torch.from_numpy(canv), torch.from_numpy(angles),
-                            torch.from_numpy(ridx), torch.from_numpy(aidx),
-                            s).numpy()
+    got = radon.radon_pairs(torch.from_numpy(canv),
+                            torch.from_numpy(angles)).numpy()
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
@@ -57,18 +56,15 @@ def test_plain_matches_pallas_interpret():
     want = np.asarray(pallas_radon.radon_profiles_pallas(
         jnp.asarray(A), jnp.asarray(canv[ridx], jnp.float32),
         jnp.asarray(Bxu), interpret=True))
-    got = radon.radon_pairs(torch.from_numpy(canv), torch.from_numpy(angles),
-                            torch.from_numpy(ridx), torch.from_numpy(aidx),
-                            s).numpy()
+    got = radon.radon_pairs(torch.from_numpy(canv),
+                            torch.from_numpy(angles)).numpy()
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
 def test_angle_zero_is_exact_row_sums():
     s = 64
     canv, _, _, _ = _inputs(2, 1, s, 4)
-    got = radon.radon_pairs(torch.from_numpy(canv), torch.zeros(1),
-                            torch.zeros(1, dtype=torch.int32),
-                            torch.zeros(1, dtype=torch.int32), s).numpy()
+    got = radon.radon_pairs(torch.from_numpy(canv), torch.zeros(1)).numpy()
     np.testing.assert_array_equal(got[0], canv[0].sum(axis=1))
 
 
@@ -76,6 +72,5 @@ def test_cpu_tensors_do_not_count_launches():
     s = 64
     canv, angles, ridx, aidx = _inputs(3, 1, s, 4)
     radon.launches = 0
-    radon.radon_pairs(torch.from_numpy(canv), torch.from_numpy(angles),
-                      torch.from_numpy(ridx), torch.from_numpy(aidx), s)
+    radon.radon_pairs(torch.from_numpy(canv), torch.from_numpy(angles))
     assert radon.launches == 0

@@ -13,8 +13,8 @@ import torch
 
 from sbb_textline_detection_tpu_torch.ops import radon
 
-# f32 sums in another order, and shared-memory atomics in an order that
-# changes from run to run: the JAX package's Pallas-vs-einsum tolerance
+# f32 sums in another order, and global atomics in an order that changes
+# from run to run: the JAX package's Pallas-vs-einsum tolerance
 RTOL, ATOL = 1e-4, 1e-2
 
 
@@ -24,9 +24,13 @@ def _inputs(seed, r, s, n_angles, fill=0.2):
     angles = np.concatenate([
         np.linspace(-25, 25, n_angles - 3), [-90.0, -63.3, 0.0]]
     ).astype(np.float32)
-    ridx = np.repeat(np.arange(r), n_angles).astype(np.int32)
-    aidx = np.tile(np.arange(n_angles), r).astype(np.int32)
-    return canv, angles, ridx, aidx
+    return canv, angles
+
+
+def _sweep_angles():
+    """The main path's 110 angles: 80 coarse in +-25, 30 in -90..-50."""
+    return np.concatenate([np.linspace(-25, 25, 80),
+                           np.linspace(-90, -50, 30)]).astype(np.float32)
 
 
 def _lines(seed, r, s):
@@ -45,24 +49,22 @@ def _lines(seed, r, s):
     return canv
 
 
-@pytest.mark.parametrize("shape,dtype,s,match", [
-    ((2, 64, 64), torch.float32, 64, "uint8"),
-    ((2, 64, 48), torch.uint8, 64, "uint8"),
-    ((2, 40, 40), torch.uint8, 40, "multiple of 16"),
-])
-def test_kernel_wrapper_rejects_bad_canvases(shape, dtype, s, match):
-    args = (torch.zeros(shape, dtype=dtype), torch.zeros(1), torch.zeros(1),
-            torch.zeros(1, dtype=torch.int32),
-            torch.zeros(1, dtype=torch.int32))
+@pytest.mark.parametrize("shape,dtype,match", [
+    ((2, 64, 64), torch.float32, "uint8"),
+    ((2, 64, 48), torch.uint8, "uint8"),
+    ((2, 40, 40), torch.uint8, "multiple of 16"),
+], ids=["shape0-dtype0-64-uint8", "shape1-dtype1-64-uint8",
+        "shape2-dtype2-40-multiple of 16"])
+def test_kernel_wrapper_rejects_bad_canvases(shape, dtype, match):
     with pytest.raises(ValueError, match=match):
-        radon.radon_pairs_cuda(*args, s)
+        radon.radon_pairs_cuda(torch.zeros(shape, dtype=dtype),
+                               torch.zeros(1), torch.zeros(1))
 
 
 def test_unsupported_device_raises():
     canv = torch.zeros((1, 64, 64), dtype=torch.uint8, device="meta")
-    idx = torch.zeros(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        radon.radon_pairs(canv, torch.zeros(1, device="meta"), idx, idx, 64)
+        radon.radon_pairs(canv, torch.zeros(1, device="meta"))
 
 
 @pytest.fixture
@@ -73,21 +75,25 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,kind", [(256, "noise"), (512, "noise"),
-                                    (512, "lines")])
-def test_kernel_matches_plain_on_card(cuda_device, s, kind):
-    canv, angles, ridx, aidx = _inputs(4, 8, s, 110)
+@pytest.mark.parametrize("regions,s", [(8, 512), (2, 512), (8, 256)],
+                         ids=["880x512", "220x512", "880x256"])
+@pytest.mark.parametrize("kind", ["noise", "lines"])
+def test_kernel_matches_plain_on_card(cuda_device, regions, s, kind):
+    """The main path's shapes: groups of 8 regions and the tail group of 2,
+    110 angles, at both canvas sizes; 20 % noise and text-like bands."""
     if kind == "lines":
-        canv = _lines(5, 8, s)
-    args = [torch.from_numpy(x).to(cuda_device)
-            for x in (canv, angles, ridx, aidx)]
-    cosv, sinv = radon.angle_cos_sin(args[1])
-    want = radon.radon_pairs_plain(args[0], cosv, sinv, args[2], args[3],
-                                   s).cpu().numpy()
+        canv = _lines(5, regions, s)
+    else:
+        canv = _inputs(4, regions, s, 110)[0]
+    canv = torch.from_numpy(canv).to(cuda_device)
+    angles = torch.from_numpy(_sweep_angles()).to(cuda_device)
+    cosv, sinv = radon.angle_cos_sin(angles)
+    want = radon.radon_pairs_plain(canv, cosv, sinv).cpu().numpy()
     before = radon.launches
-    got = radon.radon_pairs(*args, s)
+    got = radon.radon_pairs(canv, angles)
     torch.cuda.synchronize()
     assert radon.launches == before + 1
+    assert tuple(got.shape) == (regions * 110, s)
     np.testing.assert_allclose(got.cpu().numpy(), want, rtol=RTOL,
                                atol=ATOL)
 
@@ -98,8 +104,8 @@ def test_card_tensors_never_take_the_plain_version(cuda_device, monkeypatch):
         raise AssertionError("the plain version ran on CUDA tensors")
 
     monkeypatch.setattr(radon, "radon_pairs_plain", plain)
-    canv, angles, ridx, aidx = _inputs(6, 2, 64, 8)
+    canv, angles = _inputs(6, 2, 64, 8)
     out = radon.radon_pairs(*[torch.from_numpy(x).to(cuda_device)
-                              for x in (canv, angles, ridx, aidx)], 64)
+                              for x in (canv, angles)])
     torch.cuda.synchronize()
     assert out.device.type == "cuda" and tuple(out.shape) == (16, 64)
