@@ -14,8 +14,9 @@ Phases (any failure raises and the script exits non-zero):
      atol 1e-2); on the noise the kernel, the plain version and the
      library's matrix form (two float32 torch.bmm per pair, A and B built
      in advance; timed only) are timed with CUDA events beside the bound
-     (canvas and output bytes at 3.35 TB/s against 11 float32 operations
-     per set pixel and angle at 67 TFLOP/s); the resident deskew chain on
+     (canvas and output bytes at 3.35 TB/s against 8 float32 operations
+     per set pixel and angle, 3 more where its value is not 1, at 67
+     TFLOP/s); the resident deskew chain on
      the card against the same chain on the CPU (plain version) on drawn
      text lines; the dual-head U-Net forward on the card against the CPU
      in float32;
@@ -72,21 +73,6 @@ GRAD_FLOOR = 1e-6
 PARAM_ATOL = 1e-5
 
 
-def _cuda_time(fn, reps):
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def build_native(details):
     """`make -C native`: the C++ host geometry library that the host phase
     loads. Without it the pages would run the numpy fallbacks, a different
@@ -113,19 +99,21 @@ def build_native(details):
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 # f32 operations per set (pixel, angle) pair of the Radon sweep: 4 weight
-# products, 1 add, 3 value products, 3 accumulates
-RADON_OPS_PER_PAIR = 11
-# the main path's shapes: (regions, canvas side); 110 angles each
-RADON_SHAPES = ((8, 512), (2, 512), (8, 256))
+# products, 1 add, 3 accumulates; a pixel whose value is not 1 adds 3
+# value products (the main path's canvases are 0/1, and the kernel skips
+# the products for a 1)
+RADON_OPS_PER_PAIR = 8
+RADON_OPS_PER_VALUE = 3
 
 
 def _radon_bound(canv, n_angles):
     """Least time (ms) for the sweep on these inputs, and its binding side:
     each canvas byte read once, each output float written once, against
-    11 f32 operations per set (pixel, angle) pair."""
+    the f32 operations that this run's set pixels need at every angle."""
     r, s = int(canv.shape[0]), int(canv.shape[1])
     nbytes = r * s * s + 4 * n_angles + 4 * r * n_angles * s
-    ops = RADON_OPS_PER_PAIR * int((canv != 0).sum()) * n_angles
+    ops = n_angles * (RADON_OPS_PER_PAIR * int((canv != 0).sum())
+                      + RADON_OPS_PER_VALUE * int((canv > 1).sum()))
     by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_S, 1e3 * ops / F32_OPS_S
     return max(by_bytes, by_ops), ("bytes" if by_bytes > by_ops
                                    else "operations")
@@ -136,7 +124,7 @@ def _radon_library_ms(canv, cosv, sinv):
     per pair (TF32 off), with A, B and the canvases built in advance."""
     import torch
 
-    from sbb_textline_detection_tpu_torch.ops import radon
+    from sbb_textline_detection_tpu_torch.ops import radon, radon_bench
 
     r, s = int(canv.shape[0]), int(canv.shape[1])
     n = int(cosv.shape[0])
@@ -151,7 +139,8 @@ def _radon_library_ms(canv, cosv, sinv):
         min=0.0).transpose(1, 2).contiguous()
     img = canv[ridx].to(torch.float32)
     with radon.full_f32_matmul():
-        ms = _cuda_time(lambda: torch.bmm(torch.bmm(A, img), Bt), 3)
+        ms = radon_bench.cuda_time(lambda: torch.bmm(torch.bmm(A, img), Bt),
+                                   3)
     del A, Bt, img
     torch.cuda.empty_cache()
     return ms
@@ -163,21 +152,17 @@ def kernel_phase(dev, details):
     noise and on text-like bands (rtol 1e-4, atol 1e-2); on the noise, the
     kernel, the plain version and the library's matrix form timed with
     CUDA events, beside the bound. The first shape is the kernel's line."""
-    import numpy as np
     import torch
 
-    from sbb_textline_detection_tpu_torch.ops import radon
+    from sbb_textline_detection_tpu_torch.ops import radon, radon_bench
 
-    angles = torch.from_numpy(np.concatenate([
-        np.linspace(-25, 25, 80), np.linspace(-90, -50, 30)]).astype(
-            np.float32)).to(dev)
+    angles = torch.from_numpy(radon_bench.sweep_angles()).to(dev)
     cosv, sinv = radon.angle_cos_sin(angles)
     n_angles = int(angles.shape[0])
     rows = []
-    for r, s in RADON_SHAPES:
-        rng = np.random.default_rng(SEED)
-        noise = (rng.uniform(size=(r, s, s)) < 0.2).astype(np.uint8)
-        for kind, canv in (("noise", noise), ("lines", _text_bands(r, s))):
+    for r, s in radon_bench.SHAPES:
+        for kind, canv in (("noise", radon_bench.noise(SEED, r, s)),
+                           ("lines", radon_bench.text_bands(SEED + 5, r, s))):
             canv = torch.from_numpy(canv).to(dev)
             got = radon.radon_pairs(canv, angles)
             want = radon.radon_pairs_plain(canv, cosv, sinv)
@@ -189,11 +174,11 @@ def kernel_phase(dev, details):
                    "canvas": kind, "set_pixels": int((canv != 0).sum()),
                    "max_abs_err": err, "bound_ms": bound_ms,
                    "bound_by": bound_by,
-                   "ms": _cuda_time(lambda: radon.radon_pairs(canv, angles),
-                                    50)}
+                   "ms": radon_bench.cuda_time(
+                       lambda: radon.radon_pairs(canv, angles), 50)}
             if kind == "noise":
-                row["plain_ms"] = _cuda_time(lambda: radon.radon_pairs_plain(
-                    canv, cosv, sinv), 3)
+                row["plain_ms"] = radon_bench.cuda_time(
+                    lambda: radon.radon_pairs_plain(canv, cosv, sinv), 3)
                 row["library_ms"] = _radon_library_ms(canv, cosv, sinv)
             rows.append(row)
             print(f"radon kernel, {row['pairs']} pairs at S={s} on {kind}: "
@@ -205,24 +190,6 @@ def kernel_phase(dev, details):
                   f"{err:.3g} (rtol 1e-4, atol 1e-2)", flush=True)
     details["radon"] = rows
     return rows[0]
-
-
-def _text_bands(r, s):
-    """Mostly empty canvases with skewed bars, like the sweep's real
-    inputs (tests/test_torch_radon_cuda.py draws the same)."""
-    import numpy as np
-
-    rng = np.random.default_rng(SEED + 5)
-    canv = np.zeros((r, s, s), np.uint8)
-    xs = np.arange(s // 4, 3 * s // 4)
-    for i in range(r):
-        t = np.tan(np.deg2rad(rng.uniform(-20, 20)))
-        for y0 in range(s // 4, 3 * s // 4, 24):
-            for k in range(8):
-                ys = np.round(y0 + k + t * (xs - s / 2)).astype(int)
-                ok = (ys >= 0) & (ys < s)
-                canv[i, ys[ok], xs[ok]] = 1
-    return canv
 
 
 def deskew_phase(dev, details):

@@ -15,13 +15,14 @@
 // bins outside [0, S) are dropped, exactly as the matrix form drops them.
 // It computes the full region x angle product, row-major: out[r*A + a].
 //
-// Bound: per set (pixel, angle) pair ~11 f32 operations (4 weight
-// products, 1 add, 3 value products, 3 accumulates), so at 20 % fill the
-// least time is set by operations, not by the 2 MB of canvas bytes. What
-// costs is everything around them: the earlier kernel (one block per
-// pair) re-read the canvas from L2 for every angle, recomputed the row
-// and column terms for every pixel, diverged on data-dependent branches
-// and summed with shared-memory float atomics. What is left is latency:
+// Bound: per set (pixel, angle) pair 8 f32 operations (4 weight products,
+// 1 add, 3 accumulates; 3 value products more where the pixel is not 1),
+// so at 20 % fill the least time is set by operations, not by the 2 MB of
+// canvas bytes. What costs is everything around them: the earlier kernel
+// (one block per pair) re-read the canvas from L2 for every angle,
+// recomputed the row and column terms for every pixel, diverged on
+// data-dependent branches and summed with shared-memory float atomics.
+// What is left is latency:
 // each lane walks its strip one dependent pixel at a time. The design:
 //   * Lane = angle. A block takes one region, a tile of up to 32 angles
 //     and a 32-row x 64-column sub-canvas; each of its 4 warps takes a
@@ -29,6 +30,12 @@
 //     S = 512). A warp walks its strip and every lane scatters the same
 //     pixel for its own angle, so the pixel bytes, the zero skipping and
 //     the loop control are uniform across the warp; only the bins differ.
+//   * Empty sub-canvases: each thread first reads one of the sub-canvas's
+//     128 16-byte vectors, and a block whose sub-canvas is all zero
+//     returns before it sets anything up. The main path's canvases hold a
+//     few small regions (a random-weight page: ~14 set pixels a canvas),
+//     so most blocks exit here; without this the set-up made the kernel
+//     slower than the earlier one on such pages.
 //   * Staging: the sub-canvas is brought into shared memory once per
 //     block, for all of its angles, in tiles of 16 rows with cp.async,
 //     double-buffered.
@@ -40,7 +47,7 @@
 //     wb1) and u0 per (x, angle) in shared memory, [x][lane] so that a
 //     lookup is one conflict-free load; the row terms (s0, wa0, wa1) are
 //     computed when the walk enters a row. A set pixel then costs two
-//     table loads, five multiplies and an add.
+//     table loads, four multiplies and an add, and three accumulates.
 //   * Sums without atomics: a lane's bins over its 32 x 16 strip span at
 //     most hypot(31, 15) + 4 < 39 bins, so every (warp, angle) owns a
 //     private row of 41 bins in shared memory and adds with plain loads
@@ -76,6 +83,8 @@ constexpr int kStageRows = 16;    // rows per staged tile, two tiles in flight
 constexpr int kStrip = 16;        // canvas columns per warp (16 bytes)
 constexpr int kBandCols = kWarps * kStrip;
 constexpr unsigned kFull = 0xffffffffu;
+static_assert(kThreads == kBandRows * kBandCols / 16,
+              "the emptiness test reads one 16-byte vector a thread");
 
 __device__ __forceinline__ float hat(float d) {
   return fmaxf(0.0f, __fsub_rn(1.0f, fabsf(d)));
@@ -147,6 +156,20 @@ radon_sweep_kernel(const uint8_t* __restrict__ canvases,
   const int bh = min(kBandRows, s - by0);
   const int xs0 = bx0 + warp * kStrip;
   const bool busy = xs0 < s;                 // S % 16 == 0: a full strip
+  const uint8_t* img = canvases + static_cast<size_t>(region) * s * s;
+
+  // kThreads = kBandRows * kBandCols / 16: one vector of the sub-canvas a
+  // thread; an all-zero sub-canvas adds nothing to the zeroed output
+  {
+    const int per_row = bw / 16;
+    const int r = threadIdx.x / per_row;
+    uint4 q = make_uint4(0u, 0u, 0u, 0u);
+    if (r < bh)
+      q = __ldg(reinterpret_cast<const uint4*>(
+          img + static_cast<size_t>(by0 + r) * s + bx0
+          + 16 * (threadIdx.x - r * per_row)));
+    if (!__syncthreads_or((q.x | q.y | q.z | q.w) != 0u)) return;
+  }
 
   // shared memory: the private bin rows [warps * 32][width], the column
   // table [warps][16 x][32 lanes] of (wb0, wb1) and of u0 - min u0, the
@@ -189,7 +212,6 @@ radon_sweep_kernel(const uint8_t* __restrict__ canvases,
   const float2* my_w = col_w + warp * kStrip * 32 + lane;
   const uint8_t* my_u = col_u + warp * kStrip * 32 + lane;
 
-  const uint8_t* img = canvases + static_cast<size_t>(region) * s * s;
   const int n_stage = (bh + kStageRows - 1) / kStageRows;
   auto load = [&](int k, int buf) {
     const int y0 = by0 + k * kStageRows;
@@ -261,7 +283,8 @@ radon_sweep_kernel(const uint8_t* __restrict__ canvases,
   }
 
   // sum the warps' rows of each angle and add each bin to the output once:
-  // warp v takes angles v, v + 8, ...; lane u < 8 fetches warp u's row
+  // warp v takes angles v, v + kWarps, ...; lane u < kWarps fetches warp
+  // u's lowest bin
   for (int i = warp; i < na; i += kWarps) {
     const int mine = lane < kWarps ? lo_tab[lane * 32 + i] : INT_MIN;
     int tlo = mine == INT_MIN ? INT_MAX : mine;

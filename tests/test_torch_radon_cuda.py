@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from sbb_textline_detection_tpu_torch.ops import radon
+from sbb_textline_detection_tpu_torch.ops import radon, radon_bench
 
 # f32 sums in another order, and global atomics in an order that changes
 # from run to run: the JAX package's Pallas-vs-einsum tolerance
@@ -19,34 +19,10 @@ RTOL, ATOL = 1e-4, 1e-2
 
 
 def _inputs(seed, r, s, n_angles, fill=0.2):
-    rng = np.random.default_rng(seed)
-    canv = (rng.uniform(size=(r, s, s)) < fill).astype(np.uint8)
     angles = np.concatenate([
         np.linspace(-25, 25, n_angles - 3), [-90.0, -63.3, 0.0]]
     ).astype(np.float32)
-    return canv, angles
-
-
-def _sweep_angles():
-    """The main path's 110 angles: 80 coarse in +-25, 30 in -90..-50."""
-    return np.concatenate([np.linspace(-25, 25, 80),
-                           np.linspace(-90, -50, 30)]).astype(np.float32)
-
-
-def _lines(seed, r, s):
-    """Mostly empty canvases with skewed bars, like the sweep's real
-    inputs (most 16-byte vectors are zero)."""
-    rng = np.random.default_rng(seed)
-    canv = np.zeros((r, s, s), np.uint8)
-    xs = np.arange(s // 4, 3 * s // 4)
-    for i in range(r):
-        t = np.tan(np.deg2rad(rng.uniform(-20, 20)))
-        for y0 in range(s // 4, 3 * s // 4, 24):
-            for k in range(8):
-                ys = np.round(y0 + k + t * (xs - s / 2)).astype(int)
-                ok = (ys >= 0) & (ys < s)
-                canv[i, ys[ok], xs[ok]] = 1
-    return canv
+    return radon_bench.noise(seed, r, s, fill), angles
 
 
 @pytest.mark.parametrize("shape,dtype,match", [
@@ -75,18 +51,18 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("regions,s", [(8, 512), (2, 512), (8, 256)],
+@pytest.mark.parametrize("regions,s", radon_bench.SHAPES,
                          ids=["880x512", "220x512", "880x256"])
 @pytest.mark.parametrize("kind", ["noise", "lines"])
 def test_kernel_matches_plain_on_card(cuda_device, regions, s, kind):
     """The main path's shapes: groups of 8 regions and the tail group of 2,
     110 angles, at both canvas sizes; 20 % noise and text-like bands."""
     if kind == "lines":
-        canv = _lines(5, regions, s)
+        canv = radon_bench.text_bands(5, regions, s)
     else:
-        canv = _inputs(4, regions, s, 110)[0]
+        canv = radon_bench.noise(4, regions, s)
     canv = torch.from_numpy(canv).to(cuda_device)
-    angles = torch.from_numpy(_sweep_angles()).to(cuda_device)
+    angles = torch.from_numpy(radon_bench.sweep_angles()).to(cuda_device)
     cosv, sinv = radon.angle_cos_sin(angles)
     want = radon.radon_pairs_plain(canv, cosv, sinv).cpu().numpy()
     before = radon.launches

@@ -4,10 +4,11 @@ package's: given the same rng they are bit-equal."""
 import numpy as np
 import pytest
 
-from sbb_textline_detection_tpu import native_bridge
+from sbb_textline_detection_tpu import native_bridge as jnative
 from sbb_textline_detection_tpu.ops import rotate as jrotate
 from sbb_textline_detection_tpu.training import data as jdata
 from sbb_textline_detection_tpu.utils import synthetic as jsyn
+from sbb_textline_detection_tpu_torch import native_bridge
 from sbb_textline_detection_tpu_torch.ops import rotate
 from sbb_textline_detection_tpu_torch.training import data
 from sbb_textline_detection_tpu_torch.utils import synthetic
@@ -97,11 +98,14 @@ def test_page_pool_is_the_ports_own(monkeypatch):
 @pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
 @pytest.mark.parametrize("order", [0, 1, 3])
 def test_rotate_image_host_equals_jax(monkeypatch, order, native):
-    """Both the native dispatch and the numpy path, 2-D and 3-D inputs."""
-    if native and not native_bridge.available():
+    """Both the native dispatch and the numpy path, 2-D and 3-D inputs.
+    The port and the JAX package each load the library through their own
+    bridge, so the numpy case turns off both."""
+    if native and not (native_bridge.available() and jnative.available()):
         pytest.skip("the native host library is not built")
     if not native:
-        monkeypatch.setattr(native_bridge, "available", lambda: False)
+        for bridge in (native_bridge, jnative):
+            monkeypatch.setattr(bridge, "available", lambda: False)
     rng = np.random.default_rng(order)
     for img in (rng.uniform(size=(37, 52)),
                 rng.uniform(size=(30, 24, 3)) * 255.0):
@@ -113,6 +117,7 @@ def test_rotate_image_host_equals_jax(monkeypatch, order, native):
 
 
 def test_rotate_image_host_rejects_other_orders(monkeypatch):
+    """The numpy path (the native one serves orders 0, 1 and 3 only)."""
     monkeypatch.setattr(native_bridge, "available", lambda: False)
     with pytest.raises(ValueError):
         rotate.rotate_image_host(np.zeros((4, 4)), 5.0, order=2)
