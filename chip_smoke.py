@@ -24,7 +24,14 @@ Phases (any failure raises and the script exits non-zero):
      TF32 off) runs process_batch over 3 synthetic A4 pages (3508x2480,
      skews 0, 8 and -15 degrees): no page may degrade, the Radon kernel
      must have launched, at least one region must carry a nonzero slope,
-     and every PAGE-XML must parse.
+     and every PAGE-XML must parse; then the classic three-model bundle:
+     three full-size ResNet50Unets (float32; random weights, the text
+     classes' head biases recentred where random weights leave them
+     lopsided) saved and loaded by ModelBundle.from_dir, their forwards
+     timed and counted on a chunk of page tiles, the region model against
+     the CPU (limit 1e-4 of the largest logit), and process_batch over the
+     same 3 pages, the last one tinted so that it goes up as RGB: each
+     must reach the deskew chain with a region and Radon launches;
   5. training, on the dual-head model at full width (DUALHEAD_SPEC: widths
      (32, 64, 128, 256), 448x448, 2 input channels, heads (3, 2)):
      (a) one float32 AdamW step (TF32 off) from the same random_init
@@ -71,6 +78,20 @@ LOSS_RTOL = 1e-6
 GRAD_RTOL = 1e-3
 GRAD_FLOOR = 1e-6
 PARAM_ATOL = 1e-5
+# the classic bundle: (role, classes) of its three ResNet50Unets; the card
+# vs CPU limit of the region model's f32 logits (max |err| over the
+# largest |logit|) on CLASSIC_PARITY_TILES page tiles; the textline
+# model's (low, high, target) class-1 share, recentred to the target when
+# random weights leave it outside (low, high); the region model's class-1
+# share is kept when it lies in CLASSIC_REGION_SHARE and every page has a
+# text region, else CLASSIC_REGION_SHARES are tried in turn until they do
+CLASSIC_CLASSES = (("page", 2), ("region", 3), ("textline", 2))
+CLASSIC_TILE = 448
+CLASSIC_PARITY_TILES = 4
+CLASSIC_PARITY_RTOL = 1e-4
+CLASSIC_TEXTLINE_SHARE = (0.05, 0.5, 0.25)
+CLASSIC_REGION_SHARE = (0.2, 0.8)
+CLASSIC_REGION_SHARES = (0.5, 0.7, 0.85, 0.95)
 
 
 def build_native(details):
@@ -262,7 +283,7 @@ def pipeline_phase(dev, details):
     from sbb_textline_detection_tpu_torch.utils import synthetic
 
     models = ModelBundle.random_init(DEFAULT_CONFIG.runtime, seed=SEED,
-                                     device=dev)
+                                     device=dev, dual_head=True)
     det = TextlineDetector(models, DEFAULT_CONFIG)
     pages = []
     for i, skew in enumerate(SKEWS):
@@ -376,6 +397,255 @@ def profile_phase(det, page, details):
           f"{radon.launches - before} launches on this page", flush=True)
     if radon_ms <= 0:
         raise RuntimeError("the profile shows no Radon kernel time")
+
+
+def _tint(img):
+    """A sepia tint: the page's channels differ, so the detector uploads
+    RGB and the fused program gathers three channels."""
+    import numpy as np
+
+    out = img.astype(np.float32)
+    out[..., 1] *= 0.92
+    out[..., 2] *= 0.78
+    return out.astype(np.uint8)
+
+
+def _chunk_of_tiles(models, img, cfg):
+    """The first tile chunk of `img` at working size, cut on the fused
+    program's grid (uint8, on the card), and the page's Otsu threshold."""
+    import numpy as np
+    import torch
+
+    from sbb_textline_detection_tpu_torch.models.runner import _balanced_chunk
+    from sbb_textline_detection_tpu_torch.ops import threshold
+    from sbb_textline_detection_tpu_torch.pipeline import stages
+
+    th, tw = stages.working_dims(img, cfg)
+    scaled = stages.LazyScaledImage(img, th, tw).image
+    ny, nx = models.region.grid_for(th, tw, cfg.tiling.margin_ratio)
+    chunk = _balanced_chunk(ny * nx, cfg.runtime.tile_chunk)
+    mh, mw = models.region.input_hw
+    margin = int(cfg.tiling.margin_ratio * mw)
+    sh, sw = mh - 2 * margin, mw - 2 * margin
+    starts = [(min(j * sh, th - mh), min(i * sw, tw - mw))
+              for j in range(ny) for i in range(nx)][:chunk]
+    tiles = np.stack([scaled[y:y + mh, x:x + mw] for y, x in starts])
+    return (torch.from_numpy(tiles).to(models.region.device),
+            threshold.otsu_threshold_host(scaled[..., 0]))
+
+
+def _class1_margin(logits):
+    """Per pixel (every 7th), class 1's logit over the best other's: its
+    share above 0 is class 1's share of the argmax, and adding d to class
+    1's head bias moves every margin by d."""
+    import torch
+
+    others = torch.cat([logits[:, :1], logits[:, 2:]], 1).amax(1)
+    return (logits[:, 1] - others).flatten()[::7].float()
+
+
+def _set_class1_share(model, margin, bias0, target):
+    """Class 1's head bias set so that its share of the margin sample's
+    argmax becomes `target`; returns the shift from `bias0`."""
+    import torch
+
+    shift = -float(torch.quantile(margin, 1.0 - target))
+    with torch.no_grad():
+        model.module.head.bias[1] = bias0 + shift
+    return shift
+
+
+def classic_phase(dev, details):
+    """The classic three-model bundle: three full-size ResNet50Unets
+    (page 2 classes, region 3, textline 2; 448x448, float32, seeded
+    random_init) written with checkpoint.save and loaded by
+    ModelBundle.from_dir. On a chunk of the first page's tiles: the
+    forwards timed with CUDA events, their FLOPs counted, the region
+    model's logits on the card against the CPU (TF32 off), and the text
+    classes' shares recentred where random weights leave them lopsided or
+    a page without a text region. Then process_batch over 3 A4 pages, the
+    last tinted (RGB upload); each must reach the deskew chain with at
+    least one region and Radon launches."""
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from sbb_textline_detection_tpu_torch.models import checkpoint, registry
+    from sbb_textline_detection_tpu_torch.models.runner import ModelBundle
+    from sbb_textline_detection_tpu_torch.ops import radon, radon_bench
+    from sbb_textline_detection_tpu_torch.pipeline import detector, stages
+    from sbb_textline_detection_tpu_torch.pipeline.detector import (
+        DEFAULT_CONFIG, TextlineDetector)
+    from sbb_textline_detection_tpu_torch.utils import synthetic
+
+    cfg = DEFAULT_CONFIG
+    names = cfg.model_names
+    out = os.path.join(ROOT, "build", "smoke_classic")
+    os.makedirs(out, exist_ok=True)
+    t0 = time.time()
+    for role, n_classes in CLASSIC_CLASSES:
+        spec = registry.ModelSpec(getattr(names, role), "resnet50_unet",
+                                  CLASSIC_TILE, CLASSIC_TILE, n_classes)
+        checkpoint.save(os.path.join(out, spec.name + ".npz"), spec,
+                        checkpoint.random_init(
+                            spec, torch.Generator().manual_seed(SEED)))
+    save_s = time.time() - t0
+    t0 = time.time()
+    models = ModelBundle.from_dir(out, cfg.runtime, dev, names)
+    load_s = time.time() - t0
+    if models.is_dual_head or models.region.spec.arch != "resnet50_unet":
+        raise AssertionError("from_dir did not load the classic bundle")
+    pages = []
+    for i, skew in enumerate(SKEWS):
+        img, _ = synthetic.make_page(np.random.default_rng(SEED + i), 3508,
+                                     2480, skew_deg=skew)
+        pages.append((_tint(img) if i == 2 else img,
+                      f"classic_a4_skew{skew:+.0f}.png"))
+
+    tiles, t = _chunk_of_tiles(models, pages[0][0], cfg)
+    x = {"region": (tiles[..., 0].to(torch.int32) > t).to(torch.float32)
+         [:, None].expand(-1, 3, -1, -1),
+         "textline": (tiles.to(torch.float32) / 255.0).permute(0, 3, 1, 2)}
+    fwd, shares = {}, {}
+    with torch.no_grad():
+        for role in ("region", "textline"):
+            m = getattr(models, role)
+            with FlopCounterMode(display=False) as fc:
+                m.module.forward_nchw(x[role][:1])
+            fwd[role] = {"chunk": int(tiles.shape[0]),
+                         "flops_per_tile": fc.get_total_flops(),
+                         "ms_per_chunk": radon_bench.cuda_time(
+                             lambda: m.module.forward_nchw(x[role]), 3)}
+        cpu = registry.build_module(models.region.spec)
+        cpu.load_state_dict(models.region.module.state_dict())
+        sample = x["region"][:CLASSIC_PARITY_TILES]
+        want = cpu.eval().forward_nchw(sample.cpu())
+        got = models.region.module.forward_nchw(sample).cpu()
+        parity = float((got - want).abs().max() / want.abs().max())
+        del cpu, want, got
+        margins = {role: _class1_margin(getattr(models, role).module
+                                        .forward_nchw(x[role]))
+                   for role in ("region", "textline")}
+    del tiles, x
+    torch.cuda.empty_cache()
+    for role, f in fwd.items():
+        f["tflop_per_s"] = f["flops_per_tile"] * f["chunk"] / (
+            f["ms_per_chunk"] * 1e9)
+        print(f"classic {role} ResNet50Unet forward (f32, TF32 off): "
+              f"{f['ms_per_chunk']:.2f} ms per {f['chunk']}-tile chunk, "
+              f"{f['flops_per_tile'] / 1e9:.2f} GFLOP a tile, "
+              f"{f['tflop_per_s']:.1f} TFLOP/s", flush=True)
+    print(f"classic bundle saved in {save_s:.1f} s, loaded by from_dir in "
+          f"{load_s:.1f} s", flush=True)
+    print(f"classic region model card vs cpu (f32, {CLASSIC_PARITY_TILES} "
+          f"page tiles): max |err| / max |logit| {parity:.3g} (limit "
+          f"{CLASSIC_PARITY_RTOL:g})", flush=True)
+    if not parity <= CLASSIC_PARITY_RTOL:
+        raise AssertionError(f"classic forward parity {parity:.3g} above "
+                             f"{CLASSIC_PARITY_RTOL:g}")
+
+    # seeded random weights rarely pick the text classes in proportion
+    # (the CPU tests nudge the same biases): the textline share is
+    # recentred when it lies outside CLASSIC_TEXTLINE_SHARE, and the
+    # region share, unless it lies in CLASSIC_REGION_SHARE, set through
+    # CLASSIC_REGION_SHARES until every page's region mask holds a text
+    # region
+    det = TextlineDetector(models, cfg)
+    for role in ("region", "textline"):
+        share = float((margins[role] > 0).float().mean())
+        shares[role] = {"share": share, "bias_shift": 0.0}
+    lo, hi, target = CLASSIC_TEXTLINE_SHARE
+    if not lo < shares["textline"]["share"] < hi:
+        shares["textline"]["bias_shift"] = _set_class1_share(
+            models.textline, margins["textline"],
+            float(models.textline.module.head.bias[1].detach()), target)
+    bias0 = float(models.region.module.head.bias[1].detach())
+    lo, hi = CLASSIC_REGION_SHARE
+    for target in ([None] if lo < shares["region"]["share"] < hi else []) \
+            + list(CLASSIC_REGION_SHARES):
+        if target is not None:
+            shares["region"]["bias_shift"] = _set_class1_share(
+                models.region, margins["region"], bias0, target)
+        n_regions = [len(stages.region_contours_and_boxes(
+            det._device_phase_raw(*page).region_mask, cfg)[0])
+            for page in pages]
+        if min(n_regions) > 0:
+            break
+    else:
+        raise AssertionError("no text region at any class-1 share")
+    for role, f in fwd.items():
+        sh = shares[role]
+        print(f"classic {role}: class-1 share {sh['share']:.3f} on the "
+              f"chunk" + (f"; seeded random weights, head bias nudged by "
+                          f"{sh['bias_shift']:+.4f}" if sh["bias_shift"]
+                          else "; weights as drawn"), flush=True)
+    shipped, chunks = [], []
+    upload, pair = models.region.upload_raw, models.region._forward_pair
+
+    def record_upload(image):
+        shipped.append(image.ndim)
+        return upload(image)
+
+    def record_chunk(other, batch, tb):
+        chunks.append(int(batch.shape[0]))
+        return pair(other, batch, tb)
+
+    models.region.upload_raw = record_upload
+    models.region._forward_pair = record_chunk
+    per_page, total = [], 0
+    it = det.process_batch(pages)
+    for (img, name) in pages:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        chunks.clear()
+        radon.launches = 0
+        t0 = time.time()
+        res = next(it)
+        torch.cuda.synchronize()
+        sec = time.time() - t0
+        launches = radon.launches
+        total += launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        root = ET.fromstring(ET.tostring(res.xml_tree.getroot()))
+        n_lines = sum(1 for el in root.iter() if el.tag.endswith("TextLine"))
+        rgb = shipped[-1] == 3
+        n_tiles = sum(chunks)
+        flops = n_tiles * sum(f["flops_per_tile"] for f in fwd.values())
+        page = {"page": name, "seconds": sec, "regions": len(res.contours),
+                "nonzero_slopes": sum(1 for s in res.slopes if s != 0.0),
+                "textlines": n_lines, "radon_launches": launches,
+                "degraded": res.degraded, "peak_bytes": peak,
+                "rgb_upload": rgb, "tiles": n_tiles, "chunks": len(chunks),
+                "resnet_tflop": flops / 1e12, "timings": res.timings}
+        per_page.append(page)
+        print(f"{name}: {sec:.2f} s, {page['regions']} regions, "
+              f"{page['nonzero_slopes']} with nonzero slope, {n_lines} "
+              f"lines, {launches} radon launches, degraded {res.degraded}, "
+              f"peak {peak / 2**30:.2f} GiB, "
+              f"{'RGB' if rgb else 'one-plane'} upload, {n_tiles} tiles in "
+              f"{len(chunks)} chunks x 2 ResNet forwards "
+              f"({flops / 1e12:.2f} TFLOP; region "
+              f"{fwd['region']['ms_per_chunk']:.1f} + textline "
+              f"{fwd['textline']['ms_per_chunk']:.1f} ms per "
+              f"{fwd['region']['chunk']}-tile chunk), timings "
+              + " ".join(f"{k}={v:.3f}" for k, v in res.timings.items()),
+              flush=True)
+        if res.degraded or not res.contours or launches == 0:
+            raise AssertionError(f"{name}: the classic page did not reach "
+                                 f"the deskew chain (degraded "
+                                 f"{res.degraded}, {len(res.contours)} "
+                                 f"regions, {launches} launches)")
+        if rgb != (not detector._channels_identical(img)):
+            raise AssertionError(f"{name}: wrong upload ({shipped[-1]}-d)")
+    if not per_page[2]["rgb_upload"]:
+        raise AssertionError("the tinted page did not go up as RGB")
+    details["classic"] = {"save_s": save_s, "load_s": load_s,
+                          "forward": fwd, "parity_rel_err": parity,
+                          "class1_share_and_nudge": shares,
+                          "pages": per_page, "radon_launches": total}
+    return total
 
 
 def train_parity_phase(dev, details):
@@ -622,6 +892,8 @@ def main() -> int:
     unet_phase(dev, details)
     launches, det, pages = pipeline_phase(dev, details)
     profile_phase(det, pages[1], details)
+    del det
+    launches += classic_phase(dev, details)
     train_parity_phase(dev, details)
     dual = train_phase(dev, details)
     serve_trained_phase(dev, details, dual,

@@ -3,10 +3,14 @@
 `python -m sbb_textline_detection_tpu_torch.cli -i IMAGE -o OUT_DIR
 -m MODEL_DIR` mirrors the reference CLI (upstream main.py:2162-2171):
 `-i` may be a directory (pages run one after another with the models
-loaded once); `--synthetic-models` uses randomly initialized models;
-`-m` reads the page and dual-head `.npz` checkpoints of the JAX package's
-format. `--device` (default `cuda`) picks the device; without a CUDA card
-the command stops unless `--device cpu` is given.
+loaded once); `--synthetic-models` uses randomly initialized models (the
+page and dual-head TpuUnets); `-m` reads a directory of checkpoints
+through ModelBundle.from_dir: the page and dual-head `.npz` files of the
+JAX package's format, or the upstream three-model layout (page, region
+and textline) as `.npz` files or as the upstream Keras `.h5` files, which
+are converted on first load (needs h5py; see models/convert.py).
+`--device` (default `cuda`) picks the device; without a CUDA card the
+command stops unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -50,7 +54,8 @@ device_option = click.option(
               help="directory to write output xml data")
 @click.option("--model", "-m", required=False,
               type=click.Path(exists=True, file_okay=False),
-              help="directory of models (.npz checkpoints)")
+              help="directory of models: page + dual-head .npz, or the "
+                   "page, region and textline .npz or Keras .h5 files")
 @click.option("--synthetic-models", is_flag=True, default=False,
               help="use randomly initialized models (smoke runs)")
 @device_option
@@ -61,7 +66,7 @@ def main(image, out, model, synthetic_models, device):
 
     if synthetic_models:
         models = ModelBundle.random_init(DEFAULT_CONFIG.runtime,
-                                         device=device)
+                                         device=device, dual_head=True)
     elif model:
         models = ModelBundle.from_dir(model, DEFAULT_CONFIG.runtime, device,
                                       DEFAULT_CONFIG.model_names)

@@ -1,18 +1,26 @@
-"""Checkpoint I/O and parameter init for the port's TpuUnet.
+"""Checkpoint I/O and parameter init for the port's U-Nets.
 
 `load` and `save` read and write the JAX package's `.npz` format
 (models/checkpoint.py:29/41 there: the flattened Flax variable tree under
 "::"-joined keys plus a JSON `__meta__` entry holding the ModelSpec) with
 numpy alone, so either package loads what the other saved;
-`params_from_flax` turns such a tree into a state_dict of
-models/unet.TpuUnet and `flax_from_params` is its inverse; `random_init`
-draws a fresh state_dict with Flax's own initialisers.
+`params_from_flax` turns such a tree (the `params` collection and, for the
+ResNet50Unet, `batch_stats`) into a state_dict of models/unet and
+`flax_from_params` is its inverse; `random_init` draws a fresh state_dict
+with Flax's own initialisers. `checkpoint_path` resolves a model name in a
+directory and converts an upstream Keras `.h5` on load (models/convert.py).
+
+The two trees name the same modules: Flax's auto-named `Conv_0` /
+`GroupNorm_0` are the port's `conv` / `norm`, and a ResNet BatchNorm's
+`<name>/BatchNorm_0` is the port's `<name>` (models/unet._BN).
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import math
+import os
 from typing import Dict, Tuple
 
 import numpy as np
@@ -22,12 +30,19 @@ from sbb_textline_detection_tpu_torch.models.registry import ModelSpec
 
 _META_KEY = "__meta__"
 _SEP = "::"
+_MODULE_TO_TORCH = {"Conv_0": "conv", "GroupNorm_0": "norm",
+                    "BatchNorm_0": None}
+_LEAF_TO_TORCH = {"kernel": "weight", "scale": "weight", "bias": "bias",
+                  "mean": "running_mean", "var": "running_var"}
+_BN_LEAF_TO_FLAX = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+                    "running_mean": ("batch_stats", "mean"),
+                    "running_var": ("batch_stats", "var")}
 
 
 def save(path: str, spec: ModelSpec, state_dict) -> None:
-    """Write a TpuUnet state_dict as a `.npz` checkpoint of the JAX
-    package's format: the keys, shapes and dtypes of a Flax-saved one of
-    the same spec."""
+    """Write a state_dict as a `.npz` checkpoint of the JAX package's
+    format: the keys, shapes and dtypes of a Flax-saved one of the same
+    spec."""
     arrays = {}
 
     def flatten(prefix, node):
@@ -61,81 +76,149 @@ def load(path: str) -> Tuple[ModelSpec, dict]:
     return spec, tree
 
 
+def _leaves(tree, path=()):
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
 def params_from_flax(variables) -> Dict[str, torch.Tensor]:
-    """Flax TpuUnet variables (nested dict of arrays, with or without the
-    top-level "params" collection) -> TpuUnet state_dict. Conv kernels go
-    from HWIO to OIHW; GroupNorm scale/bias and the head bias carry over."""
-    params = variables.get("params", variables)
+    """Flax variables (nested dict of arrays: `params` and, for the
+    ResNet50Unet, `batch_stats`; a bare params tree is taken as `params`)
+    -> state_dict. Conv kernels go from HWIO to OIHW; norm scales and
+    biases, conv biases and BatchNorm running statistics carry over."""
+    if "params" not in variables:
+        variables = {"params": variables}
     sd: Dict[str, torch.Tensor] = {}
-    for name, node in params.items():
-        if name == "head":
-            k = np.asarray(node["kernel"], np.float32)
-            sd["head.weight"] = torch.from_numpy(
-                np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
-            sd["head.bias"] = torch.from_numpy(
-                np.asarray(node["bias"], np.float32).copy())
-            continue
-        k = np.asarray(node["Conv_0"]["kernel"], np.float32)
-        sd[f"{name}.conv.weight"] = torch.from_numpy(
-            np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
-        gn = node["GroupNorm_0"]
-        sd[f"{name}.norm.weight"] = torch.from_numpy(
-            np.asarray(gn["scale"], np.float32).copy())
-        sd[f"{name}.norm.bias"] = torch.from_numpy(
-            np.asarray(gn["bias"], np.float32).copy())
+    for collection in variables.values():
+        for path, leaf in _leaves(collection):
+            mods = (_MODULE_TO_TORCH.get(p, p) for p in path[:-1])
+            key = ".".join([m for m in mods if m]
+                           + [_LEAF_TO_TORCH[path[-1]]])
+            a = np.asarray(leaf, np.float32)
+            if path[-1] == "kernel":
+                a = a.transpose(3, 2, 0, 1)
+            sd[key] = torch.from_numpy(np.array(a, order="C"))
     return sd
 
 
 def flax_from_params(state_dict) -> dict:
-    """TpuUnet state_dict -> Flax variables {"params": {...}} of float32
-    numpy arrays: the exact inverse of `params_from_flax` (conv kernels
-    OIHW -> HWIO under `<block>/Conv_0/kernel`, GroupNorm weight/bias as
-    `GroupNorm_0/{scale,bias}`, the 1x1 head as `head/{kernel,bias}`)."""
+    """state_dict -> Flax variables {"params": ..., "batch_stats": ...} of
+    float32 numpy arrays (`batch_stats` only for a model with BatchNorm):
+    the exact inverse of `params_from_flax`."""
     def arr(t):  # a copy: never a view of a live parameter
         return t.detach().to("cpu", torch.float32).numpy().copy()
 
-    params: dict = {}
+    bn = {k.rsplit(".", 1)[0] for k in state_dict
+          if k.endswith(".running_mean")}
+    out: dict = {"params": {}}
     for key, t in state_dict.items():
-        name, rest = key.split(".", 1)
-        if name == "head":
-            leaf = "kernel" if rest == "weight" else "bias"
-            v = arr(t)
-            params.setdefault("head", {})[leaf] = (
-                np.ascontiguousarray(v.transpose(2, 3, 1, 0))
-                if leaf == "kernel" else v)
-        elif rest == "conv.weight":
-            params.setdefault(name, {})["Conv_0"] = {
-                "kernel": np.ascontiguousarray(arr(t).transpose(2, 3, 1, 0))}
-        elif rest in ("norm.weight", "norm.bias"):
-            leaf = "scale" if rest == "norm.weight" else "bias"
-            params.setdefault(name, {}).setdefault(
-                "GroupNorm_0", {})[leaf] = arr(t)
+        mod, leaf = key.rsplit(".", 1)
+        parts = mod.split(".")
+        v = arr(t)
+        if mod in bn:
+            collection, name = _BN_LEAF_TO_FLAX[leaf]
+            parts.append("BatchNorm_0")
+        elif parts[-1] == "norm" and leaf in ("weight", "bias"):
+            collection, name = "params", "scale" if leaf == "weight" \
+                else "bias"
+            parts[-1] = "GroupNorm_0"
+        elif (leaf == "weight" and v.ndim == 4) or leaf == "bias":
+            collection, name = "params", "kernel" if leaf == "weight" \
+                else "bias"
+            if parts[-1] == "conv":
+                parts[-1] = "Conv_0"
+            if name == "kernel":
+                v = np.ascontiguousarray(v.transpose(2, 3, 1, 0))
         else:
-            raise KeyError(f"unexpected TpuUnet parameter {key!r}")
-    return {"params": params}
+            raise KeyError(f"unexpected parameter {key!r}")
+        node = out.setdefault(collection, {})
+        for p in parts:
+            node = node.setdefault(p, {})
+        node[name] = v
+    return out
 
 
 def random_init(spec: ModelSpec,
                 generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """Fresh state_dict with Flax's initialisers: lecun-normal kernels
     (fan-in variance scaling, normal truncated at 2 sigma), zero biases,
-    unit GroupNorm scales. Drawn on the CPU from `generator`."""
+    unit norm scales, and BatchNorm statistics mean 0 / variance 1. Drawn
+    on the CPU from `generator`, kernels in state_dict order."""
     from sbb_textline_detection_tpu_torch.models import registry
 
-    shapes = registry.build_module(spec, torch.float32).state_dict()
     sd: Dict[str, torch.Tensor] = {}
-    for key, ref in shapes.items():
-        t = torch.empty(ref.shape, dtype=torch.float32)
-        if key.endswith("conv.weight") or key == "head.weight":
-            fan_in = ref.shape[1] * ref.shape[2] * ref.shape[3]
+    for key, shape in registry.state_shapes(spec).items():
+        t = torch.empty(shape, dtype=torch.float32)
+        if len(shape) == 4:
+            fan_in = shape[1] * shape[2] * shape[3]
             # Flax truncated_normal variance scaling: the stddev of a
             # standard normal truncated to [-2, 2] is 0.8796...
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
                                         generator=generator)
-        elif key.endswith("norm.weight"):
+        elif key.endswith((".weight", ".running_var")):
             t.fill_(1.0)
         else:
             t.zero_()
         sd[key] = t
     return sd
+
+
+def npz_path(model_dir: str, name: str) -> str:
+    """Plain `<model_dir>/<name>.npz` (no conversion), tolerating a legacy
+    `.h5` suffix in the configured name."""
+    base = name[:-3] if name.endswith(".h5") else name
+    return os.path.join(model_dir, base + ".npz")
+
+
+def checkpoint_path(model_dir: str, name: str) -> str:
+    """Resolve `<model_dir>/<name>.npz`, tolerating a legacy `.h5` suffix in
+    the configured name (counterpart of checkpoint.py:72-116 in the JAX
+    package).
+
+    When `<name>.h5` exists and the converted `.npz` sibling is missing or
+    older than it, the `.h5` is converted (models/convert.py) and cached as
+    the sibling, or, when `model_dir` is not writable, under
+    `~/.cache/sbb_textline_detection_tpu_torch/<dir key>/`. A partial
+    weight map raises with the ImportReport summary."""
+    base = name[:-3] if name.endswith(".h5") else name
+    npz = npz_path(model_dir, base)
+    h5 = os.path.join(model_dir, base + ".h5")
+    if not os.path.exists(h5):
+        return npz
+    cache_dir = os.path.join(
+        os.path.expanduser("~"), ".cache", "sbb_textline_detection_tpu_torch",
+        _dir_cache_key(model_dir))
+    cached = os.path.join(cache_dir, base + ".npz")
+    for candidate in (npz, cached):
+        if os.path.exists(candidate) and \
+                os.path.getmtime(candidate) >= os.path.getmtime(h5):
+            return candidate
+    log = logging.getLogger("sbb_textline_detection_tpu_torch.checkpoint")
+    from sbb_textline_detection_tpu_torch.models.convert import convert_h5
+
+    reports: list = []
+    for out_dir in (model_dir, cache_dir):
+        try:
+            path = convert_h5(h5, out_dir, name=base, report_out=reports)
+        except OSError as exc:
+            log.warning("cannot write a converted checkpoint to %s (%s)",
+                        out_dir, exc)
+            continue
+        spec, report = reports[-1]
+        log.info("converted %s -> %s [%s %dx%d n_classes=%d; %d layers "
+                 "mapped]", h5, path, spec.arch, spec.input_height,
+                 spec.input_width, spec.n_classes, len(report.mapped))
+        return path
+    raise OSError(f"could not write a converted checkpoint for {h5} "
+                  f"(model dir and user cache both unwritable)")
+
+
+def _dir_cache_key(model_dir: str) -> str:
+    import hashlib
+
+    return hashlib.sha256(
+        os.path.abspath(model_dir).encode("utf-8")).hexdigest()[:16]

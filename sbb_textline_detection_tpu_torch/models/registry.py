@@ -12,7 +12,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
     name: str
-    arch: str                    # 'tpu_unet' ('resnet50_unet' is not ported)
+    arch: str                    # 'tpu_unet' | 'resnet50_unet'
     input_height: int
     input_width: int
     n_classes: int
@@ -61,9 +61,22 @@ DUALHEAD_SPEC = ModelSpec("model_dualhead", "tpu_unet", 448, 448, 5,
 
 
 def build_module(spec: ModelSpec, dtype: torch.dtype = torch.bfloat16):
+    """The spec's module. `dtype` is TpuUnet's conv compute dtype; the
+    ResNet50Unet computes in float32 whatever is asked, as the JAX module
+    does."""
     from sbb_textline_detection_tpu_torch.models import unet
 
     if spec.arch == "tpu_unet":
         return unet.TpuUnet(spec.n_classes, spec.widths,
                             in_channels=spec.in_channels, dtype=dtype)
-    raise ValueError(f"architecture {spec.arch!r} is not ported")
+    if spec.arch == "resnet50_unet":
+        return unet.ResNet50Unet(spec.n_classes, spec.in_channels)
+    raise ValueError(f"unknown architecture {spec.arch!r}")
+
+
+def state_shapes(spec: ModelSpec):
+    """{state_dict key: shape} of the spec's module, built on the meta
+    device (no memory, no init)."""
+    with torch.device("meta"):
+        module = build_module(spec, torch.float32)
+    return {k: tuple(v.shape) for k, v in module.state_dict().items()}

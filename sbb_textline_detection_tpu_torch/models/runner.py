@@ -5,11 +5,12 @@ TextlineDetector's raw-upload path runs).
   * `SegmentationModel.predict_small_prescaled`: the page model's whole-
     image forward at model resolution (label map back to host);
   * `SegmentationModel.upload_raw` + `predict_dual_tiled_resident_raw`:
-    the fused segmentation program of the dual-head model — nearest
-    gather of the working canvas from the resident raw page, whitening
-    outside the page box, masked Otsu, tile gather, the dual-head forward
-    in `_balanced_chunk` chunks with a per-head argmax, stitch, region
-    morphology + class mask, and the textline row sum.
+    the fused segmentation program — nearest gather of the working canvas
+    from the resident raw page (one plane or RGB), whitening outside the
+    page box, masked Otsu, tile gather, in `_balanced_chunk` chunks either
+    the dual-head forward with a per-head argmax or the classic region and
+    textline forwards, stitch, region morphology + class mask, and the
+    textline row sum.
 
 PyTorch runs eagerly, so there is no compile cache and no shape bucketing
 beyond the tile grid; the JAX package's 1-/2-bit transfer packing
@@ -55,7 +56,7 @@ def _pad_white(img: np.ndarray, bottom: int, right: int) -> np.ndarray:
 
 
 class SegmentationModel:
-    """One loaded TpuUnet on a device."""
+    """One loaded TpuUnet or ResNet50Unet on a device."""
 
     def __init__(self, spec, state_dict, runtime: RuntimeConfig | None = None,
                  device="cuda", dtype: torch.dtype | None = None):
@@ -113,21 +114,59 @@ class SegmentationModel:
         cw = margin + scaled_w + sw + margin
         return (-(-ch // 128) * 128, -(-cw // 128) * 128)
 
-    # -- fused dual-head program ---------------------------------------------
+    # -- fused region + textline program -------------------------------------
     def upload_raw(self, image: np.ndarray) -> torch.Tensor:
         """Pad the ORIGINAL page to 128-multiples (white) and copy it to
-        the device. The dual-head program reads channel 0 only, so an RGB
-        page ships its first plane; the working canvas is gathered on the
-        device by predict_dual_tiled_resident_raw."""
-        plane = image[..., 0] if image.ndim == 3 else image
-        h, w = plane.shape
+        the device. `image` is (h, w, 3) RGB or one (h, w) plane: the
+        detector ships a plane when the page's channels are byte-identical
+        or the dual-head model (which reads channel 0 only) serves it. The
+        working canvas is gathered on the device by
+        predict_dual_tiled_resident_raw."""
+        h, w = image.shape[:2]
         ph, pw = -(-h // 128) * 128, -(-w // 128) * 128
         if (ph, pw) != (h, w):
-            plane = _pad_white(plane, ph - h, pw - w)
-        return torch.from_numpy(np.ascontiguousarray(plane)).to(self.device)
+            image = _pad_white(image, ph - h, pw - w)
+        return torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
 
     def _is_dual_head_pair(self, other: "SegmentationModel") -> bool:
+        """True when `self` (region role) and `other` (textline role) are
+        the same dual-head model: one forward yields both label maps."""
         return other is self and bool(self.spec.heads)
+
+    def textline_n_classes(self, other: "SegmentationModel") -> int:
+        """Class count of the textline label map the fused program emits:
+        the last head's width on a dual-head model, else `other`'s."""
+        if self._is_dual_head_pair(other):
+            return int(self.spec.heads[-1])
+        return int(other.spec.n_classes)
+
+    def _forward_pair(self, other: "SegmentationModel", batch: torch.Tensor,
+                      tb: torch.Tensor):
+        """(region labels, textline labels) uint8 (n, mh, mw) of a uint8
+        tile batch, (n, mh, mw) or (n, mh, mw, 3), with per-tile Otsu
+        thresholds `tb` (runner.py:483-556 in the JAX package).
+
+        Dual-head model: one forward on [raw01 (channel 0 / 255), channel 0
+        thresholded] and an argmax per head. Classic pair: the region model
+        sees channel 0 thresholded as 0.0 / 1.0 on all 3 channels (otsu_copy,
+        main.py:191-193) and the textline model the tiles / 255
+        (main.py:490-503), a plane repeated to 3 channels."""
+        plane = batch[..., 0] if batch.ndim == 4 else batch
+        ch0 = (plane.to(torch.int32) > tb[:, None, None]).to(torch.float32)
+        if self._is_dual_head_pair(other):
+            h0 = int(self.spec.heads[0])
+            rawf = plane.to(torch.float32) / 255.0
+            logits = self.module.forward_nchw(torch.stack([rawf, ch0], 1))
+            return (torch.argmax(logits[:, :h0], 1).to(torch.uint8),
+                    torch.argmax(logits[:, h0:], 1).to(torch.uint8))
+        x = batch.to(torch.float32) / 255.0
+        x = x.permute(0, 3, 1, 2) if batch.ndim == 4 \
+            else x[:, None].expand(-1, 3, -1, -1)
+        logits_r = self.module.forward_nchw(ch0[:, None].expand(-1, 3, -1, -1))
+        labels_r = torch.argmax(logits_r, 1).to(torch.uint8)
+        del logits_r
+        logits_t = other.module.forward_nchw(x)
+        return labels_r, torch.argmax(logits_t, 1).to(torch.uint8)
 
     @torch.no_grad()
     def predict_dual_tiled_resident_raw(self, other: "SegmentationModel",
@@ -143,10 +182,10 @@ class SegmentationModel:
         `raw_hws`: the original page dims before upload_raw's padding.
         Returns per page (region_mask uint8 (h, w) on the host, textline
         row sum int32 (h,) on the host, textline canvas uint8 on the
-        device)."""
-        if not self._is_dual_head_pair(other):
-            raise ValueError("the fused program serves the dual-head model "
-                             "(region and textline roles on one model)")
+        device). `other` is the textline model: `self` for the dual-head
+        model, else the classic textline model of the same tile size."""
+        if self.input_hw != other.input_hw:
+            raise ValueError("dual tiled predict needs identical geometry")
         if mask_class is None:
             raise ValueError("the fused program needs mask_class")
         k = len(raws)
@@ -195,30 +234,28 @@ class SegmentationModel:
                 1, ix_t.clamp(0, pad_w - 1))
             inside = ((cy >= margin + by) & (cy < margin + by + bh)
                       & (cx >= margin + bx) & (cx < margin + bx + bw))
-            img = torch.where(ok & inside, cv, white)
-            ts.append(threshold.otsu_threshold_masked(img, inside))
+            keep = ok & inside
+            img = torch.where(keep[..., None] if cv.ndim == 3 else keep, cv,
+                              white)
+            ts.append(threshold.otsu_threshold_masked(
+                img[..., 0] if img.ndim == 3 else img, inside))
             # tile starts clamp into the canvas like lax.dynamic_slice
             y0 = np.clip(by + jj.ravel() * sh, 0, ch - mh)
             x0 = np.clip(bx + ii.ravel() * sw, 0, cw - mw)
             rows = torch.from_numpy(y0[:, None] + np.arange(mh)).to(dev)
             cols = torch.from_numpy(x0[:, None] + np.arange(mw)).to(dev)
             tiles.append(img[rows[:, :, None], cols[:, None, :]])
-        tiles = torch.cat(tiles)                              # (k*n, mh, mw)
+        tiles = torch.cat(tiles)                   # (k*n, mh, mw[, 3])
         t_tiles = torch.stack(ts).repeat_interleave(n)
 
         total = k * n
         chunk = _balanced_chunk(total, self.runtime.tile_chunk)
-        h0 = int(self.spec.heads[0])
         labels_r, labels_t = [], []
         for c0 in range(0, total, chunk):
-            batch = tiles[c0:c0 + chunk]
-            tb = t_tiles[c0:c0 + chunk]
-            ch0 = (batch.to(torch.int32) > tb[:, None, None]).to(
-                torch.float32)
-            rawf = batch.to(torch.float32) / 255.0
-            logits = self.module.forward_nchw(torch.stack([rawf, ch0], 1))
-            labels_r.append(torch.argmax(logits[:, :h0], 1).to(torch.uint8))
-            labels_t.append(torch.argmax(logits[:, h0:], 1).to(torch.uint8))
+            lr, lt = self._forward_pair(other, tiles[c0:c0 + chunk],
+                                        t_tiles[c0:c0 + chunk])
+            labels_r.append(lr)
+            labels_t.append(lt)
 
         def stitch(labels):
             slabs = torch.cat(labels)[:, margin:margin + sh,
@@ -245,8 +282,10 @@ class SegmentationModel:
 
 
 class ModelBundle:
-    """The page model plus the dual-head model, which serves both the
-    region and textline roles."""
+    """The page model plus either the dual-head model, which serves both
+    the region and textline roles, or the classic region and textline
+    models (the upstream three-model layout, main.py:58-60). Each classic
+    model may be a TpuUnet or a ResNet50Unet."""
 
     def __init__(self, page: SegmentationModel, region: SegmentationModel,
                  textline: SegmentationModel):
@@ -260,61 +299,89 @@ class ModelBundle:
                 and bool(self.region.spec.heads))
 
     @staticmethod
-    def _from_state(page_spec, page_sd, dual_spec, dual_sd, runtime, device,
+    def _from_state(page, region, textline, runtime, device,
                     dtype) -> "ModelBundle":
-        dual_spec = _as_spec(dual_spec)
-        if not dual_spec.heads:
-            raise ValueError(f"model {dual_spec.name!r} carries no head "
-                             "split; the port serves the dual-head bundle")
-        page = SegmentationModel(page_spec, page_sd, runtime, device, dtype)
-        dual = SegmentationModel(dual_spec, dual_sd, runtime, device, dtype)
-        return ModelBundle(page, dual, dual)
+        """Each role a (spec, state_dict) pair; `textline` None means
+        `region` is the dual-head model and serves both roles."""
+        def build(spec_sd):
+            return SegmentationModel(spec_sd[0], spec_sd[1], runtime, device,
+                                     dtype)
+
+        region_model = build(region)
+        if textline is None:
+            if not region_model.spec.heads:
+                raise ValueError(f"model {region_model.spec.name!r} carries "
+                                 "no head split; it cannot serve the "
+                                 "textline role too")
+            return ModelBundle(build(page), region_model, region_model)
+        return ModelBundle(build(page), region_model, build(textline))
 
     @staticmethod
     def random_init(runtime: RuntimeConfig | None = None, seed: int = 0,
                     device="cuda", dtype: torch.dtype | None = None,
-                    page_spec=None, dual_spec=None) -> "ModelBundle":
+                    specs=None, dual_head: bool = False) -> "ModelBundle":
         """Randomly initialized bundle (tests / smoke runs): each model's
-        weights are drawn from torch.Generator().manual_seed(seed)."""
-        page_spec = _as_spec(page_spec or registry.DEFAULT_SPECS["page"])
-        dual_spec = _as_spec(dual_spec or registry.DUALHEAD_SPEC)
+        weights are drawn from torch.Generator().manual_seed(seed).
+        `specs` maps the roles page / region / textline to specs (default
+        registry.DEFAULT_SPECS); with `dual_head`, one DUALHEAD_SPEC model
+        serves the region and textline roles."""
+        specs = dict(specs or registry.DEFAULT_SPECS)
+        if dual_head:
+            specs["region"] = registry.DUALHEAD_SPEC
+            specs["textline"] = None
+
+        def pair(spec):
+            if spec is None:
+                return None
+            spec = _as_spec(spec)
+            return spec, checkpoint.random_init(
+                spec, torch.Generator().manual_seed(seed))
+
         return ModelBundle._from_state(
-            page_spec, checkpoint.random_init(
-                page_spec, torch.Generator().manual_seed(seed)),
-            dual_spec, checkpoint.random_init(
-                dual_spec, torch.Generator().manual_seed(seed)),
-            runtime, device, dtype)
+            pair(specs["page"]), pair(specs["region"]),
+            pair(specs["textline"]), runtime, device, dtype)
 
     @staticmethod
-    def from_jax_variables(page_variables, dual_variables, page_spec=None,
-                           dual_spec=None,
+    def from_jax_variables(page, region, textline=None,
                            runtime: RuntimeConfig | None = None,
                            device="cuda", dtype: torch.dtype | None = None
                            ) -> "ModelBundle":
-        """Bundle from Flax variable trees (nested dicts of arrays) of the
-        page model and the dual-head model."""
-        return ModelBundle._from_state(
-            page_spec or registry.DEFAULT_SPECS["page"],
-            checkpoint.params_from_flax(page_variables),
-            dual_spec or registry.DUALHEAD_SPEC,
-            checkpoint.params_from_flax(dual_variables),
-            runtime, device, dtype)
+        """Bundle from (spec, Flax variable tree) pairs, the trees nested
+        dicts of arrays: the page model, the region model and the textline
+        model, or with `textline` None, the dual-head model as `region`."""
+        def state(pair):
+            return None if pair is None else (
+                pair[0], checkpoint.params_from_flax(pair[1]))
+
+        return ModelBundle._from_state(state(page), state(region),
+                                       state(textline), runtime, device,
+                                       dtype)
 
     @staticmethod
     def from_dir(model_dir: str, runtime: RuntimeConfig | None = None,
                  device="cuda", model_names=None,
                  dtype: torch.dtype | None = None) -> "ModelBundle":
-        """`<model_dir>/<page>.npz` + `<model_dir>/<dualhead>.npz` in the
-        JAX package's checkpoint format."""
+        """Load a bundle from `model_dir` (runner.py:1731-1764 in the JAX
+        package). A dual-head `.npz` checkpoint (names.dualhead), when
+        present, serves both the region and textline roles beside the
+        page model; otherwise the three classic checkpoints load. Each
+        name resolves to `<name>.npz`, converted from `<name>.h5` when the
+        directory holds upstream Keras checkpoints
+        (checkpoint.checkpoint_path)."""
         import os
 
         from sbb_textline_detection_tpu_torch.core.config import ModelNames
 
         names = model_names or ModelNames()
-        page_spec, page_vars = checkpoint.load(
-            os.path.join(model_dir, names.page + ".npz"))
-        dual_spec, dual_vars = checkpoint.load(
-            os.path.join(model_dir, names.dualhead + ".npz"))
-        return ModelBundle.from_jax_variables(page_vars, dual_vars,
-                                              page_spec, dual_spec, runtime,
-                                              device, dtype)
+
+        def load(name):
+            return checkpoint.load(
+                checkpoint.checkpoint_path(model_dir, name))
+
+        if os.path.exists(checkpoint.npz_path(model_dir, names.dualhead)):
+            return ModelBundle.from_jax_variables(
+                load(names.page), load(names.dualhead), None, runtime,
+                device, dtype)
+        return ModelBundle.from_jax_variables(
+            load(names.page), load(names.region), load(names.textline),
+            runtime, device, dtype)

@@ -1,5 +1,6 @@
-"""The segmentation U-Net (counterpart of `TpuUnet` in
-sbb_textline_detection_tpu/models/unet.py:29-104).
+"""The segmentation U-Nets: `TpuUnet` (counterpart of `TpuUnet` in
+sbb_textline_detection_tpu/models/unet.py:29-104) and `ResNet50Unet`, the
+Keras-topology import target for the upstream `.h5` checkpoints (below).
 
 NHWC float32 in [0, 1] at the public `forward`, per-pixel class logits
 out (N, H, W, n_classes); channels_last inside. Matches the Flax module:
@@ -123,6 +124,125 @@ class TpuUnet(nn.Module):
             i += 3
         x = self.refine(upsample2x_nearest(x))             # back at H
         return self.head(x.to(torch.float32))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, C) float32 -> (N, H, W, n_classes) float32 logits."""
+        return self.forward_nchw(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# Keras-topology ResNet50-UNet (counterpart of `ResNet50Unet`,
+# sbb_textline_detection_tpu/models/unet.py:111-215): the import target for
+# the upstream `.h5` checkpoints. Float32 throughout (the Flax module takes no
+# dtype); every conv has a bias (Flax's default).
+# ---------------------------------------------------------------------------
+
+class _BN(nn.Module):
+    """Keras BatchNorm in inference mode: the running statistics, eps
+    1.001e-5, float32. Parameters and buffers carry nn.BatchNorm2d's names
+    (without its step counter) so state_dicts read like PyTorch's."""
+
+    def __init__(self, features: int, eps: float = 1.001e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight, self.bias, False, 0.0, self.eps)
+
+
+def _conv(in_ch: int, out_ch: int, k: int, stride: int = 1) -> nn.Conv2d:
+    """Flax SAME conv at stride 1 (k odd) or a 1x1 conv at any stride: both
+    pad symmetrically, by k // 2."""
+    return nn.Conv2d(in_ch, out_ch, k, stride=stride, padding=k // 2)
+
+
+class _ResIdentityBlock(nn.Module):
+    """1x1 -> 3x3 -> 1x1 bottleneck with an identity shortcut."""
+
+    def __init__(self, in_ch: int, filters, stride: int = 1):
+        super().__init__()
+        f1, f2, f3 = filters
+        self.conv_a, self.bn_a = _conv(in_ch, f1, 1, stride), _BN(f1)
+        self.conv_b, self.bn_b = _conv(f1, f2, 3), _BN(f2)
+        self.conv_c, self.bn_c = _conv(f2, f3, 1), _BN(f3)
+
+    def _branch(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn_a(self.conv_a(x)))
+        y = F.relu(self.bn_b(self.conv_b(y)))
+        return self.bn_c(self.conv_c(y))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self._branch(x) + x)
+
+
+class _ResConvBlock(_ResIdentityBlock):
+    """The bottleneck with a strided 1x1 projection shortcut."""
+
+    def __init__(self, in_ch: int, filters, stride: int = 2):
+        super().__init__(in_ch, filters, stride)
+        self.shortcut_conv = _conv(in_ch, filters[2], 1, stride)
+        self.shortcut_bn = _BN(filters[2])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        sc = self.shortcut_bn(self.shortcut_conv(x))
+        return F.relu(self._branch(x) + sc)
+
+
+class ResNet50Unet(nn.Module):
+    """ResNet50 encoder (stage features f1..f5) and a decoder of [3x3
+    conv-BN-ReLU -> 2x nearest upsample -> skip concat] x4, then a 3x3
+    class conv at full resolution. Submodule names follow the Flax tree."""
+
+    STAGES = ((2, "abc", (64, 64, 256), 1), (3, "abcd", (128, 128, 512), 2),
+              (4, "abcdef", (256, 256, 1024), 2), (5, "abc", (512, 512, 2048),
+                                                   2))
+
+    def __init__(self, n_classes: int, in_channels: int = 3):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_channels, 64, 7, stride=2, padding=3)
+        self.bn_conv1 = _BN(64)
+        ch = 64
+        for stage, blocks, filters, stride in self.STAGES:
+            self.add_module(f"res{stage}a",
+                            _ResConvBlock(ch, filters, stride))
+            for b in blocks[1:]:
+                self.add_module(f"res{stage}{b}",
+                                _ResIdentityBlock(filters[2], filters))
+            ch = filters[2]
+        # decoder: (name suffix, out width, width of the skip it meets)
+        for i, out_w, skip_w in ((5, 512, 1024), (4, 256, 512),
+                                 (3, 128, 256), (2, 64, 64), (1, 64, 0)):
+            self.add_module(f"dec_conv{i}", _conv(ch, out_w, 3))
+            self.add_module(f"dec_bn{i}", _BN(out_w))
+            ch = out_w + skip_w
+        self.head = _conv(ch, n_classes, 3)
+
+    def forward_nchw(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, C, H, W) float32 -> (N, n_classes, H, W) float32 logits."""
+        x = x.to(torch.float32).contiguous(memory_format=torch.channels_last)
+        f1 = F.relu(self.bn_conv1(self.conv1(x)))         # H/2
+        # Flax max_pool SAME pads with -inf, (0, 1) on an even size
+        ph = _same_pad(f1.shape[2], 3, 2)
+        pw = _same_pad(f1.shape[3], 3, 2)
+        x = F.max_pool2d(F.pad(f1, (pw[0], pw[1], ph[0], ph[1]),
+                               value=float("-inf")), 3, 2)
+        feats = [f1]
+        for stage, blocks, _, _ in self.STAGES:
+            for b in blocks:
+                x = getattr(self, f"res{stage}{b}")(x)
+            feats.append(x)                               # f2 .. f5
+        o = feats.pop()
+        for i in (5, 4, 3, 2, 1):
+            o = getattr(self, f"dec_bn{i}")(getattr(self, f"dec_conv{i}")(o))
+            o = upsample2x_nearest(F.relu(o))
+            if feats:
+                o = torch.cat([o, feats.pop()], dim=1)
+        return self.head(o)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(N, H, W, C) float32 -> (N, H, W, n_classes) float32 logits."""

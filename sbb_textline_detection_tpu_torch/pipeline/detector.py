@@ -1,9 +1,11 @@
 """Pipeline orchestrator for the single-page main path (counterpart of
 sbb_textline_detection_tpu/pipeline/detector.py, raw-upload path only).
 
-Per page: the ORIGINAL page goes to the device once; the page model runs
-at model resolution and the border box is decided on the host; the fused
-dual-head program segments the page crop on the device and keeps the
+Per page: the ORIGINAL page goes to the device once (one plane when its
+channels are byte-identical or the dual-head model serves it, else RGB);
+the page model runs at model resolution and the border box is decided on
+the host; the fused program (the dual-head model, or the classic region
+and textline models) segments the page crop on the device and keeps the
 textline canvas there; host contours give the regions; the resident
 deskew chain (with the Radon kernel) computes slopes and deskewed line
 profiles; line split, reading order and PAGE-XML run on the host.
@@ -65,6 +67,21 @@ class _DeviceState:
     timings: Dict[str, float]
 
 
+def _channels_identical(image: np.ndarray) -> bool:
+    """True when an RGB page's three planes are byte-identical (gray scans
+    stored as RGB): the raw upload then ships one plane, and the device
+    program broadcasts it back to 3 channels, with the same result. A
+    strided sample rejects coloured pages cheaply."""
+    if image.ndim != 3 or image.shape[2] != 3:
+        return False
+    s = image[::64, ::64]
+    if not (np.array_equal(s[..., 0], s[..., 1])
+            and np.array_equal(s[..., 0], s[..., 2])):
+        return False
+    return bool(np.array_equal(image[..., 0], image[..., 1])
+                and np.array_equal(image[..., 0], image[..., 2]))
+
+
 def _page_quad(page_coord):
     """cont_page corner quad from [y0, y1, x0, x1] (main.py:409-426)."""
     return np.array([[page_coord[2], page_coord[0]],
@@ -78,8 +95,6 @@ class TextlineDetector:
 
     def __init__(self, models: ModelBundle,
                  config: PipelineConfig = DEFAULT_CONFIG):
-        if not models.is_dual_head:
-            raise ValueError("the port runs the dual-head bundle")
         self.models = models
         self.config = config
         self.deskew = DeskewEngine(
@@ -100,7 +115,9 @@ class TextlineDetector:
         t0 = time.time()
         th, tw = stages.working_dims(image, cfg)
         scaled = stages.LazyScaledImage(image, th, tw)
-        raw_dev = self.models.region.upload_raw(image)
+        plane = self.models.is_dual_head or _channels_identical(image)
+        raw_dev = self.models.region.upload_raw(
+            image[:, :, 0] if plane and image.ndim == 3 else image)
         mh, mw = self.models.page.input_hw
         small = stages.page_model_input_from_raw(image, th, tw, mh, mw)
         small_labels = self.models.page.predict_small_prescaled(small)

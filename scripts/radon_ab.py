@@ -12,7 +12,10 @@ against the plain PyTorch version (rtol 1e-4, atol 1e-2):
   * every sweep of the page that chip_smoke.py profiles (random weights
     of seed 0, the A4 page of rng seed 1 at +8 degrees), with the
     canvases and angles that the deskew chain hands the kernel; the
-    timed call runs all of the page's groups back to back.
+    timed call runs all of the page's groups back to back. For the page
+    the row also carries the sum over its sweeps of chip_smoke.py's bound,
+    of the plain version's time and of the library's matrix form (two
+    float32 torch.bmm per pair, TF32 off).
 A source exports either `radon_sweep_launch` (the full region x angle
 product, csrc/radon.cu) or `radon_pairs_launch` (flattened pair indices,
 the kernel of the first port, which the A/B in PERF.md compares against).
@@ -93,7 +96,8 @@ def _page_sweeps(dev):
     from sbb_textline_detection_tpu_torch.utils import synthetic
 
     det = TextlineDetector(ModelBundle.random_init(
-        DEFAULT_CONFIG.runtime, seed=SEED, device=dev), DEFAULT_CONFIG)
+        DEFAULT_CONFIG.runtime, seed=SEED, device=dev, dual_head=True),
+        DEFAULT_CONFIG)
     img, _ = synthetic.make_page(np.random.default_rng(SEED + 1), 3508,
                                  2480, skew_deg=8.0)
     groups, sweep = [], radon.radon_pairs
@@ -111,6 +115,25 @@ def _page_sweeps(dev):
     if res.degraded or not groups:
         raise RuntimeError("the profiled page degraded or ran no sweep")
     return groups
+
+
+def _page_references(groups):
+    """Sums over the page's sweeps: the bound (and how many sweeps each
+    side binds), the plain version's ms and the library's ms."""
+    from chip_smoke import _radon_bound, _radon_library_ms
+    from sbb_textline_detection_tpu_torch.ops import radon, radon_bench
+
+    bound, sides, plain, library = 0.0, Counter(), 0.0, 0.0
+    for canv, angles in groups:
+        ms, side = _radon_bound(canv, int(angles.shape[0]))
+        bound += ms
+        sides[side] += 1
+        cosv, sinv = (t.contiguous() for t in radon.angle_cos_sin(angles))
+        plain += radon_bench.cuda_time(
+            lambda: radon.radon_pairs_plain(canv, cosv, sinv), 1)
+        library += _radon_library_ms(canv, cosv, sinv)
+    return {"bound_ms": bound, "bound_by": dict(sides), "plain_ms": plain,
+            "library_ms": library}
 
 
 def _compare(libs, cases, row):
@@ -173,6 +196,7 @@ def main() -> int:
                for c, a in groups)),
            "set_pixels": sum(int((c != 0).sum()) for c, _ in groups)}
     ok &= _compare(libs, groups, row)
+    row.update(_page_references(groups))
     print(json.dumps(row), flush=True)
     if not ok:
         print("radon_ab: a kernel disagrees with the plain version",

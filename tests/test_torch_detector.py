@@ -58,7 +58,7 @@ def bundles():
         dual = jrunner.SegmentationModel(DUAL_TINY, dv, rt)
         jb = jrunner.ModelBundle(jrunner.SegmentationModel(PAGE_TINY, pv, rt),
                                  dual, dual)
-        tb = ModelBundle.from_jax_variables(pv, dv, PAGE_TINY, DUAL_TINY,
+        tb = ModelBundle.from_jax_variables((PAGE_TINY, pv), (DUAL_TINY, dv),
                                             runtime=rt, device="cpu",
                                             dtype=torch.float32)
         yield jb, tb
