@@ -11,7 +11,10 @@ Phases (any failure raises and the script exits non-zero):
   3. the kernel against its plain PyTorch version at the main path's
      shapes (8 and 2 regions x 110 angles at S = 512, 8 x 110 at S = 256)
      on binary canvases at ~20% fill and on text-like bands (rtol 1e-4,
-     atol 1e-2); on the noise the kernel, the plain version and the
+     atol 1e-2), and at the host sweep's shapes (8 x 80 and 8 x 30 angles
+     at S = 512, 2 x 80 at S = 256) on canvases that
+     DeskewEngine._canvas_into renders from a synthetic page's own
+     paragraph crops; on the noise the kernel, the plain version and the
      library's matrix form (two float32 torch.bmm per pair, A and B built
      in advance; timed only) are timed with CUDA events beside the bound
      (canvas and output bytes at 3.35 TB/s against 8 float32 operations
@@ -20,8 +23,8 @@ Phases (any failure raises and the script exits non-zero):
      the card against the same chain on the CPU (plain version) on drawn
      text lines; the dual-head U-Net forward on the card against the CPU
      in float32;
-  4. a full-width random-weight bundle (bf16 compute, float32 GroupNorm,
-     TF32 off) runs process_batch over 3 synthetic A4 pages (3508x2480,
+  4. a full-width random-weight bundle (bf16 compute, float32 GroupNorm)
+     runs process_batch over 3 synthetic A4 pages (3508x2480,
      skews 0, 8 and -15 degrees): no page may degrade, the Radon kernel
      must have launched, at least one region must carry a nonzero slope,
      and every PAGE-XML must parse; then the classic three-model bundle:
@@ -31,8 +34,22 @@ Phases (any failure raises and the script exits non-zero):
      timed and counted on a chunk of page tiles, the region model against
      the CPU (limit 1e-4 of the largest logit), and process_batch over the
      same 3 pages, the last one tinted so that it goes up as RGB: each
-     must reach the deskew chain with a region and Radon launches;
-  5. training, on the dual-head model at full width (DUALHEAD_SPEC: widths
+     must reach the deskew chain with a region and Radon launches, and
+     its ResNet forwards must have run with TF32 off (the runner's own
+     switch: this script sets no global one); one page more with every
+     fused call made to raise, which the separate per-model rung must
+     serve with the same region mask and PAGE-XML;
+  5. the fallback ladder on the full-width dual-head bundle and the skew
+     +8 page (fallback_phase): the raw path against the canvas-resident
+     and the crop-upload rung (raw_upload / resident_upload off; share of
+     differing region-mask pixels at most LADDER_MASK_LIMIT), the host
+     sweep (resident_deskew off: Radon launches must rise, slopes against
+     the resident chain's within SWEEP_SLOPE_LIMIT degrees), one injected
+     resident_collect failure (the page keeps its regions and lines, one
+     host_sweep fallback counted), and textline_projection off (the same
+     PAGE-XML, reading order included); no page may degrade, and no other
+     phase may have counted a fallback;
+  6. training, on the dual-head model at full width (DUALHEAD_SPEC: widths
      (32, 64, 128, 256), 448x448, 2 input channels, heads (3, 2)):
      (a) one float32 AdamW step (TF32 off) from the same random_init
      weights on one seeded dualhead_batch of 2, on the card and on the
@@ -45,7 +62,8 @@ Phases (any failure raises and the script exits non-zero):
      checkpoint.save under build/smoke_models/, loaded by
      ModelBundle.from_dir, and serve one A4 page, which must not degrade.
 The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. With --details PATH, the run's details
+{"ok": true, "device": {...}}. The kernel line's launches add up phases
+4 and 5. With --details PATH, the run's details
 (ptxas report, per-page stage timings, kernel times) are written there as
 JSON. After the timed pages, the second page runs once more under
 torch.profiler for its device time by op and the Radon kernel's device
@@ -92,6 +110,18 @@ CLASSIC_PARITY_RTOL = 1e-4
 CLASSIC_TEXTLINE_SHARE = (0.05, 0.5, 0.25)
 CLASSIC_REGION_SHARE = (0.2, 0.8)
 CLASSIC_REGION_SHARES = (0.5, 0.7, 0.85, 0.95)
+
+
+# fallback_phase: the largest share of region-mask pixels by which a rung
+# of the standard path may differ from the raw path (the rungs feed the
+# same tile batches to the same modules, and the JAX package claims
+# bit-identity; the room is for a cuDNN algorithm that differs between two
+# calls), and the largest difference in degrees between a region's slope
+# from the host sweep and from the resident chain (one step of the coarse
+# grid, 50 / 79: both routes score the same canvases at the same angles,
+# and a near-tie may go to the neighbouring angle)
+LADDER_MASK_LIMIT = 1e-3
+SWEEP_SLOPE_LIMIT = 50.0 / 79.0 + 1e-6
 
 
 def build_native(details):
@@ -145,7 +175,7 @@ def _radon_library_ms(canv, cosv, sinv):
     per pair (TF32 off), with A, B and the canvases built in advance."""
     import torch
 
-    from sbb_textline_detection_tpu_torch.ops import radon, radon_bench
+    from sbb_textline_detection_tpu_torch.ops import precision, radon_bench
 
     r, s = int(canv.shape[0]), int(canv.shape[1])
     n = int(cosv.shape[0])
@@ -159,7 +189,7 @@ def _radon_library_ms(canv, cosv, sinv):
     Bt = (1.0 - (idx[None, :, None] - gx[:, None, :]).abs()).clamp(
         min=0.0).transpose(1, 2).contiguous()
     img = canv[ridx].to(torch.float32)
-    with radon.full_f32_matmul():
+    with precision.full_f32():
         ms = radon_bench.cuda_time(lambda: torch.bmm(torch.bmm(A, img), Bt),
                                    3)
     del A, Bt, img
@@ -209,8 +239,59 @@ def kernel_phase(dev, details):
                      else "")
                   + f", bound {bound_ms:.3g} ms by {bound_by}, max |err| "
                   f"{err:.3g} (rtol 1e-4, atol 1e-2)", flush=True)
+    rows += _host_sweep_rows(dev)
     details["radon"] = rows
     return rows[0]
+
+
+def _host_sweep_rows(dev):
+    """The kernel against its plain version at the host sweep's shapes:
+    the coarse (80) and the vertical (30) angles apart, on canvases that
+    DeskewEngine._canvas_into renders from the paragraph crops of the
+    skew +8 page's dark-pixel mask."""
+    import numpy as np
+    import torch
+
+    from sbb_textline_detection_tpu_torch.ops import radon, radon_bench
+    from sbb_textline_detection_tpu_torch.pipeline import deskew
+    from sbb_textline_detection_tpu_torch.utils import synthetic
+
+    img, layout = synthetic.make_page(np.random.default_rng(SEED + 1), 3508,
+                                      2480, skew_deg=SKEWS[1])
+    mask = (img[..., 0] < 128).astype(np.uint8)
+    crops = [mask[y0:y1, x0:x1] for x0, y0, x1, y1 in layout.paragraphs]
+    crops = [c for c in crops if c.any()]
+    if not crops:
+        raise AssertionError("the synthetic page has no paragraph crop")
+    eng = deskew.DeskewEngine(deskew.DeskewConfig(), device=dev)
+    rows = []
+    for r, s, name in ((8, 512, "_coarse"), (8, 512, "_vertical"),
+                       (2, 256, "_coarse")):
+        buf = np.zeros((r, s, s), np.uint8)
+        for i in range(r):
+            eng._canvas_into(crops[i % len(crops)], buf[i])
+        canv = torch.from_numpy(buf).to(dev)
+        angles = torch.from_numpy(getattr(eng, name)).to(dev)
+        cosv, sinv = radon.angle_cos_sin(angles)
+        got = radon.radon_pairs(canv, angles)
+        want = radon.radon_pairs_plain(canv, cosv, sinv)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-2)
+        n_angles = int(angles.shape[0])
+        bound_ms, bound_by = _radon_bound(canv, n_angles)
+        row = {"regions": r, "s": s, "pairs": r * n_angles,
+               "canvas": "page crops, host sweep " + name[1:],
+               "set_pixels": int((canv != 0).sum()), "max_abs_err": err,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "ms": radon_bench.cuda_time(
+                   lambda: radon.radon_pairs(canv, angles), 50)}
+        rows.append(row)
+        print(f"radon kernel, {r} x {n_angles} pairs at S={s} on "
+              f"{row['canvas']}: {row['ms']:.4f} ms, bound {bound_ms:.3g} "
+              f"ms by {bound_by}, {row['set_pixels']} set pixels, max |err| "
+              f"{err:.3g} (rtol 1e-4, atol 1e-2)", flush=True)
+    return rows
 
 
 def deskew_phase(dev, details):
@@ -251,6 +332,7 @@ def unet_phase(dev, details):
     import torch
 
     from sbb_textline_detection_tpu_torch.models import checkpoint, registry
+    from sbb_textline_detection_tpu_torch.ops import precision
 
     spec = registry.DUALHEAD_SPEC
     sd = checkpoint.random_init(spec, torch.Generator().manual_seed(SEED))
@@ -260,7 +342,7 @@ def unet_phase(dev, details):
     for d in ("cpu", dev):
         m = registry.build_module(spec, torch.float32)
         m.load_state_dict(sd)
-        with torch.no_grad():
+        with torch.no_grad(), precision.full_f32():
             outs.append(m.to(d).eval()(x.to(d)).cpu())
     err = float((outs[0] - outs[1]).abs().max())
     details["unet_f32_max_abs_err"] = err
@@ -325,6 +407,7 @@ def pipeline_phase(dev, details):
     details["radon_launches"] = launches
     if det.degraded:
         raise AssertionError(f"{det.degraded} page(s) degraded")
+    _no_fallbacks(det, "the main path's pages")
     if launches == 0:
         raise AssertionError("the main path never launched the radon kernel")
     if not any(p["nonzero_slopes"] for p in per_page):
@@ -334,6 +417,149 @@ def pipeline_phase(dev, details):
           f"{', '.join(f'{s:.2f}' for s in warm)} "
           f"(mean {sum(warm) / len(warm):.2f})", flush=True)
     return launches, det, pages
+
+
+def _no_fallbacks(det, what):
+    """Fail when a page of a normal phase took a rung of the fallback
+    ladder that nobody asked for."""
+    if det.fallbacks:
+        raise AssertionError(f"{what} fell back: {dict(det.fallbacks)}")
+
+
+def _xml_body(res):
+    """A result's PAGE-XML without <Metadata> (its time stamps)."""
+    import re
+    import xml.etree.ElementTree as ET
+
+    return re.sub(rb"<Metadata>.*?</Metadata>", b"",
+                  ET.tostring(res.xml_tree.getroot()), flags=re.S)
+
+
+def _watched_page(det, page):
+    """process_image(page) on `det`: (result, the device phase's state,
+    seconds, Radon launches)."""
+    import torch
+
+    from sbb_textline_detection_tpu_torch.ops import radon
+
+    states = []
+    real = det.device_phase
+
+    def device_phase(image, name=""):
+        states.append(real(image, name))
+        return states[-1]
+
+    det.device_phase = device_phase
+    try:
+        torch.cuda.synchronize()
+        radon.launches = 0
+        t0 = time.time()
+        res = det.process_image(*page)
+        torch.cuda.synchronize()
+        return res, states[0], time.time() - t0, radon.launches
+    finally:
+        del det.device_phase
+
+
+def fallback_phase(dev, details, models, page):
+    """The single-page fallback ladder on the full-width dual-head bundle
+    and one A4 page: every rung and both deskew routes against the raw
+    path with the resident chain. Returns the Radon launches of its
+    pages."""
+    import dataclasses
+
+    import numpy as np
+
+    from sbb_textline_detection_tpu_torch.pipeline.detector import (
+        DEFAULT_CONFIG, TextlineDetector)
+
+    def detector(**flags):
+        return TextlineDetector(models, dataclasses.replace(
+            DEFAULT_CONFIG, runtime=dataclasses.replace(
+                DEFAULT_CONFIG.runtime, **flags)))
+
+    def collect_fails_once(det):
+        real = det.deskew.resident_collect
+
+        def collect(handle):
+            det.deskew.resident_collect = real
+            raise RuntimeError("injected: resident_collect fails once")
+
+        det.deskew.resident_collect = collect
+
+    runs = [("raw path, resident chain", {}, None, {}),
+            ("canvas-resident rung", {"raw_upload": False}, None, {}),
+            ("crop-upload rung", {"resident_upload": False}, None, {}),
+            ("host sweep", {"resident_deskew": False}, None, {}),
+            ("resident_collect fails once", {}, collect_fails_once,
+             {"host_sweep": 1}),
+            ("no projection", {"textline_projection": False}, None, {})]
+    rows, ref, total = [], None, 0
+    for what, flags, inject, want_fallbacks in runs:
+        det = detector(**flags)
+        if ref is None:
+            _watched_page(det, page)      # untimed: first use of each op
+        if inject is not None:
+            inject(det)
+        res, st, sec, launches = _watched_page(det, page)
+        total += launches
+        n_lines = sum(len(t) for t in res.textlines)
+        if ref is None:
+            ref = (res, st)
+        diff = float(np.mean(st.region_mask != ref[1].region_mask)) \
+            if st.region_mask.shape == ref[1].region_mask.shape else 1.0
+        dslope = (max((abs(a - b) for a, b in zip(res.slopes,
+                                                  ref[0].slopes)),
+                      default=0.0)
+                  if len(res.slopes) == len(ref[0].slopes) else float("inf"))
+        row = {"run": what, "flags": flags, "seconds": sec,
+               "regions": len(res.contours), "textlines": n_lines,
+               "radon_launches": launches, "degraded": res.degraded,
+               "fallbacks": dict(det.fallbacks),
+               "mask_diff_share": diff, "max_slope_diff": dslope,
+               "slopes_differing": sum(
+                   1 for a, b in zip(res.slopes, ref[0].slopes) if a != b),
+               "xml_equal": _xml_body(res) == _xml_body(ref[0]),
+               "timings": res.timings}
+        rows.append(row)
+        print(f"fallback ladder, {what}: {sec:.3f} s, {row['regions']} "
+              f"regions, {n_lines} lines, {launches} radon launches, "
+              f"fallbacks {row['fallbacks']}, region mask differs from the "
+              f"raw path's on a share of {diff:.3g} (limit "
+              f"{LADDER_MASK_LIMIT:g}), slopes differ on "
+              f"{row['slopes_differing']} regions by at most {dslope:.4g} "
+              f"deg (limit {SWEEP_SLOPE_LIMIT:.4g}), PAGE-XML "
+              f"{'equal' if row['xml_equal'] else 'differs'}; timings "
+              + " ".join(f"{k}={v:.3f}" for k, v in res.timings.items()),
+              flush=True)
+        if res.degraded or det.degraded:
+            raise AssertionError(f"{what}: the page degraded")
+        if dict(det.fallbacks) != want_fallbacks:
+            raise AssertionError(f"{what}: fallbacks {dict(det.fallbacks)}, "
+                                 f"expected {want_fallbacks}")
+        if not res.contours or n_lines == 0:
+            raise AssertionError(f"{what}: the page has no regions or lines")
+        if not diff <= LADDER_MASK_LIMIT:
+            raise AssertionError(f"{what}: region mask differs on {diff:.3g}")
+        if not dslope <= SWEEP_SLOPE_LIMIT:
+            raise AssertionError(f"{what}: slopes differ by {dslope}")
+    by = {r["run"]: r for r in rows}
+    if not by["host sweep"]["radon_launches"] > 0:
+        raise AssertionError("the host sweep never launched the radon kernel")
+    if not by["resident_collect fails once"]["radon_launches"] > \
+            by["raw path, resident chain"]["radon_launches"]:
+        raise AssertionError("the host sweep behind the failed chain "
+                             "launched no kernel of its own")
+    if not by["no projection"]["xml_equal"]:
+        raise AssertionError("reading order from the fetched mask differs "
+                             "from the projection's")
+    print(f"deskew stage: resident chain "
+          f"{by['raw path, resident chain']['timings']['deskew']:.3f} s "
+          f"({by['raw path, resident chain']['radon_launches']} launches), "
+          f"host sweep {by['host sweep']['timings']['deskew']:.3f} s "
+          f"({by['host sweep']['radon_launches']} launches)", flush=True)
+    details["fallback_ladder"] = rows
+    return total
 
 
 def _profiled(fn):
@@ -474,7 +700,8 @@ def classic_phase(dev, details):
 
     from sbb_textline_detection_tpu_torch.models import checkpoint, registry
     from sbb_textline_detection_tpu_torch.models.runner import ModelBundle
-    from sbb_textline_detection_tpu_torch.ops import radon, radon_bench
+    from sbb_textline_detection_tpu_torch.ops import (precision, radon,
+                                                     radon_bench)
     from sbb_textline_detection_tpu_torch.pipeline import detector, stages
     from sbb_textline_detection_tpu_torch.pipeline.detector import (
         DEFAULT_CONFIG, TextlineDetector)
@@ -509,7 +736,9 @@ def classic_phase(dev, details):
          [:, None].expand(-1, 3, -1, -1),
          "textline": (tiles.to(torch.float32) / 255.0).permute(0, 3, 1, 2)}
     fwd, shares = {}, {}
-    with torch.no_grad():
+    # the module is called directly here, so TF32 is switched off as the
+    # runner switches it off around its own calls
+    with torch.no_grad(), precision.full_f32():
         for role in ("region", "textline"):
             m = getattr(models, role)
             with FlopCounterMode(display=False) as fc:
@@ -581,8 +810,17 @@ def classic_phase(dev, details):
               f"chunk" + (f"; seeded random weights, head bias nudged by "
                           f"{sh['bias_shift']:+.4f}" if sh["bias_shift"]
                           else "; weights as drawn"), flush=True)
-    shipped, chunks = [], []
+    shipped, chunks, tf32_seen = [], [], set()
     upload, pair = models.region.upload_raw, models.region._forward_pair
+    for role in ("page", "region", "textline"):
+        module = getattr(models, role).module
+
+        def forward_nchw(x, real=module.forward_nchw):
+            tf32_seen.add((torch.backends.cuda.matmul.allow_tf32,
+                           torch.backends.cudnn.allow_tf32))
+            return real(x)
+
+        module.forward_nchw = forward_nchw
 
     def record_upload(image):
         shipped.append(image.ndim)
@@ -641,10 +879,61 @@ def classic_phase(dev, details):
             raise AssertionError(f"{name}: wrong upload ({shipped[-1]}-d)")
     if not per_page[2]["rgb_upload"]:
         raise AssertionError("the tinted page did not go up as RGB")
+    _no_fallbacks(det, "the classic pages")
+    print(f"classic pages: (matmul, cuDNN) TF32 switches seen inside the "
+          f"ResNet forwards: {sorted(tf32_seen)}", flush=True)
+    if tf32_seen != {(False, False)}:
+        raise AssertionError(f"a float32 forward ran with TF32 on: "
+                             f"{sorted(tf32_seen)}")
+
+    # the separate per-model rung: every fused call raises, so the region
+    # and the textline model run one after the other (the dual-head model
+    # cannot serve this rung: it reads two channels, as in the JAX package)
+    ref, ref_st, _, ref_launches = _watched_page(det, pages[0])
+    total += ref_launches
+
+    def fused_fails(*a, **k):
+        raise RuntimeError("injected: the fused call fails")
+
+    sep_det = TextlineDetector(models, cfg)
+    for name in ("predict_dual_tiled_resident_raw",
+                 "predict_dual_tiled_resident", "predict_dual_tiled"):
+        setattr(models.region, name, fused_fails)
+    try:
+        sep, sep_st, sep_s, sep_launches = _watched_page(sep_det, pages[0])
+    finally:
+        for name in ("predict_dual_tiled_resident_raw",
+                     "predict_dual_tiled_resident", "predict_dual_tiled"):
+            delattr(models.region, name)
+    total += sep_launches
+    sep_diff = float(np.mean(sep_st.region_mask != ref_st.region_mask))
+    sep_row = {"seconds": sep_s, "regions": len(sep.contours),
+               "radon_launches": sep_launches,
+               "fallbacks": dict(sep_det.fallbacks),
+               "mask_diff_share": sep_diff,
+               "xml_equal": _xml_body(sep) == _xml_body(ref),
+               "slopes_equal": sep.slopes == ref.slopes,
+               "timings": sep.timings}
+    print(f"fallback ladder, separate per-model rung (classic bundle, "
+          f"{pages[0][1]}): {sep_s:.3f} s, {len(sep.contours)} regions, "
+          f"fallbacks {sep_row['fallbacks']}, region mask differs from the "
+          f"fused program's on a share of {sep_diff:.3g} (limit "
+          f"{LADDER_MASK_LIMIT:g}), PAGE-XML "
+          f"{'equal' if sep_row['xml_equal'] else 'differs'}; timings "
+          + " ".join(f"{k}={v:.3f}" for k, v in sep.timings.items()),
+          flush=True)
+    if sep.degraded or not sep.contours or dict(sep_det.fallbacks) != {
+            "standard_path": 1, "separate_models": 1}:
+        raise AssertionError("the separate per-model rung did not serve "
+                             f"the page: {sep_row}")
+    if not sep_diff <= LADDER_MASK_LIMIT:
+        raise AssertionError(f"separate rung: region mask differs on "
+                             f"{sep_diff:.3g}")
     details["classic"] = {"save_s": save_s, "load_s": load_s,
                           "forward": fwd, "parity_rel_err": parity,
                           "class1_share_and_nudge": shares,
-                          "pages": per_page, "radon_launches": total}
+                          "pages": per_page, "radon_launches": total,
+                          "separate_rung": sep_row}
     return total
 
 
@@ -655,6 +944,7 @@ def train_parity_phase(dev, details):
     import torch
 
     from sbb_textline_detection_tpu_torch.models import checkpoint, registry
+    from sbb_textline_detection_tpu_torch.ops import precision
     from sbb_textline_detection_tpu_torch.training import train
     from sbb_textline_detection_tpu_torch.utils import synthetic
 
@@ -670,8 +960,11 @@ def train_parity_phase(dev, details):
         m.to(d).train()
         step = train.make_train_step(spec, m, train.make_optimizer(
             m.parameters()))
-        loss = step(torch.from_numpy(imgs).to(d),
-                    torch.from_numpy(labels).to(d))
+        # float32 is this comparison's configuration, not the Trainer's
+        # (bf16 convs): TF32 is switched off for it here
+        with precision.full_f32():
+            loss = step(torch.from_numpy(imgs).to(d),
+                        torch.from_numpy(labels).to(d))
         out[str(d)] = (float(loss), {
             n: (p.detach().cpu(), p.grad.detach().cpu())
             for n, p in m.named_parameters()})
@@ -843,6 +1136,7 @@ def serve_trained_phase(dev, details, dual, random_regions):
     if det.degraded:
         raise AssertionError("the page served by the trained checkpoints "
                              "degraded")
+    _no_fallbacks(det, "the page served by the trained checkpoints")
 
 
 def main() -> int:
@@ -873,8 +1167,6 @@ def main() -> int:
     print(smi.splitlines()[0], flush=True)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     details = {"card": smi, "torch": torch.__version__,
                "cuda": torch.version.cuda, "seed": SEED,
                "skews": list(SKEWS)}
@@ -892,6 +1184,7 @@ def main() -> int:
     unet_phase(dev, details)
     launches, det, pages = pipeline_phase(dev, details)
     profile_phase(det, pages[1], details)
+    launches += fallback_phase(dev, details, det.models, pages[1])
     del det
     launches += classic_phase(dev, details)
     train_parity_phase(dev, details)

@@ -1,16 +1,27 @@
-"""Inference engine for the single-page main path (counterpart of
+"""Inference engine for single pages (counterpart of
 sbb_textline_detection_tpu/models/runner.py, limited to what
-TextlineDetector's raw-upload path runs).
+TextlineDetector's single-page paths run).
 
-  * `SegmentationModel.predict_small_prescaled`: the page model's whole-
-    image forward at model resolution (label map back to host);
-  * `SegmentationModel.upload_raw` + `predict_dual_tiled_resident_raw`:
-    the fused segmentation program — nearest gather of the working canvas
-    from the resident raw page (one plane or RGB), whitening outside the
-    page box, masked Otsu, tile gather, in `_balanced_chunk` chunks either
-    the dual-head forward with a per-head argmax or the classic region and
-    textline forwards, stitch, region morphology + class mask, and the
-    textline row sum.
+  * `SegmentationModel.predict_small_prescaled` / `predict_whole_small`:
+    the page model's whole-image forward at model resolution (label map
+    back to host);
+  * the fused segmentation program, in three forms that differ only in
+    how the working canvas reaches the device and share everything after
+    it (`_dual_tiled`: whitening outside the page box, masked Otsu, tile
+    gather, in `_balanced_chunk` chunks either the dual-head forward with
+    a per-head argmax or the classic region and textline forwards,
+    stitch, region morphology + class mask, and the textline canvas, its
+    crop or its row sum):
+      - `upload_raw` + `predict_dual_tiled_resident_raw`: the original
+        page goes up and the canvas is a nearest gather on the device;
+      - `upload_canvas` + `predict_dual_tiled_resident`: the host scales
+        the page and uploads the whole working canvas;
+      - `predict_dual_tiled`: the host crops the page box and uploads the
+        padded crop;
+  * `predict_tiled`: the same tiling for one model alone (the separate
+    per-model path).
+
+Float32 modules run inside `ops/precision.full_f32` (no TF32).
 
 PyTorch runs eagerly, so there is no compile cache and no shape bucketing
 beyond the tile grid; the JAX package's 1-/2-bit transfer packing
@@ -19,6 +30,7 @@ beyond the tile grid; the JAX package's 1-/2-bit transfer packing
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import numpy as np
@@ -27,7 +39,7 @@ import torch
 from sbb_textline_detection_tpu_torch.core.config import RuntimeConfig
 from sbb_textline_detection_tpu_torch.models import checkpoint, registry
 from sbb_textline_detection_tpu_torch.models.registry import ModelSpec
-from sbb_textline_detection_tpu_torch.ops import morphology
+from sbb_textline_detection_tpu_torch.ops import morphology, precision
 from sbb_textline_detection_tpu_torch.ops import resize as resize_ops
 from sbb_textline_detection_tpu_torch.ops import threshold
 
@@ -48,10 +60,14 @@ def _as_spec(spec) -> ModelSpec:
         ModelSpec.from_meta(spec.to_meta())
 
 
-def _pad_white(img: np.ndarray, bottom: int, right: int) -> np.ndarray:
+def _pad_white(img: np.ndarray, bottom: int, right: int, top: int = 0,
+               left: int = 0) -> np.ndarray:
+    if not (top or bottom or left or right):
+        return img
     h, w = img.shape[:2]
-    out = np.full((h + bottom, w + right) + img.shape[2:], 255, img.dtype)
-    out[:h, :w] = img
+    out = np.full((top + h + bottom, left + w + right) + img.shape[2:], 255,
+                  img.dtype)
+    out[top:top + h, left:left + w] = img
     return out
 
 
@@ -74,6 +90,22 @@ class SegmentationModel:
     def input_hw(self) -> Tuple[int, int]:
         return self.spec.input_height, self.spec.input_width
 
+    # -- precision -----------------------------------------------------------
+    @property
+    def computes_f32(self) -> bool:
+        """True when the module's convolutions run in float32: a TpuUnet
+        built with dtype float32, and every ResNet50Unet."""
+        return getattr(self.module, "dtype", torch.float32) == torch.float32
+
+    def _f32_guard(self, *others: "SegmentationModel"):
+        """precision.full_f32() when this model or one of `others`
+        computes in float32 (the reference computes those in full float32,
+        and TF32 convolutions would not); else a null context, so the bf16
+        TpuUnet is left alone. See full_f32 on threads."""
+        if any(m.computes_f32 for m in (self,) + others):
+            return precision.full_f32()
+        return contextlib.nullcontext()
+
     # -- page model --------------------------------------------------------
     @torch.no_grad()
     def predict_small_prescaled(self, small_u8: np.ndarray) -> np.ndarray:
@@ -85,17 +117,31 @@ class SegmentationModel:
                              f"{small_u8.shape[:2]}")
         x = torch.from_numpy(np.ascontiguousarray(small_u8)).to(self.device)
         x = x[None].to(torch.float32) / 255.0
-        logits = self.module.forward_nchw(x.permute(0, 3, 1, 2))
+        with self._f32_guard():
+            logits = self.module.forward_nchw(x.permute(0, 3, 1, 2))
         return torch.argmax(logits[0], dim=0).to(torch.uint8).cpu().numpy()
 
+    def predict_whole_small(self, img_u8: np.ndarray) -> np.ndarray:
+        """Whole-image forward without the final upscale: nearest-resize
+        to model size on the host, predict, argmax; returns the (model_h,
+        model_w) label map."""
+        mh, mw = self.input_hw
+        return self.predict_small_prescaled(
+            resize_ops.resize_nearest_host(img_u8, mh, mw))
+
     # -- geometry ----------------------------------------------------------
+    def _stride(self, margin_ratio: float) -> Tuple[int, int, int]:
+        """(margin, stride_h, stride_w): every tile keeps its central
+        stride_h x stride_w slab."""
+        mh, mw = self.input_hw
+        margin = int(margin_ratio * mw)
+        return margin, mh - 2 * margin, mw - 2 * margin
+
     def grid_for(self, h: int, w: int, margin_ratio: float = 0.1
                  ) -> Tuple[int, int]:
         """(ny, nx) tile grid for an (h, w) crop: ny rounds up to
         runtime.grid_bucket, nx to runtime.grid_bucket_x."""
-        mh, mw = self.input_hw
-        margin = int(margin_ratio * mw)
-        sh, sw = mh - 2 * margin, mw - 2 * margin
+        _, sh, sw = self._stride(margin_ratio)
         gb = max(1, self.runtime.grid_bucket)
         gbx = max(1, getattr(self.runtime, "grid_bucket_x", gb))
         ny = -(-max(1, -(-h // sh)) // gb) * gb
@@ -107,14 +153,12 @@ class SegmentationModel:
         """Working canvas: the scaled page plus `margin` context top/left
         and one tile stride + margin of slack bottom/right, rounded up to
         128."""
-        mh, mw = self.input_hw
-        margin = int(margin_ratio * mw)
-        sh, sw = mh - 2 * margin, mw - 2 * margin
+        margin, sh, sw = self._stride(margin_ratio)
         ch = margin + scaled_h + sh + margin
         cw = margin + scaled_w + sw + margin
         return (-(-ch // 128) * 128, -(-cw // 128) * 128)
 
-    # -- fused region + textline program -------------------------------------
+    # -- uploads -------------------------------------------------------------
     def upload_raw(self, image: np.ndarray) -> torch.Tensor:
         """Pad the ORIGINAL page to 128-multiples (white) and copy it to
         the device. `image` is (h, w, 3) RGB or one (h, w) plane: the
@@ -124,10 +168,23 @@ class SegmentationModel:
         predict_dual_tiled_resident_raw."""
         h, w = image.shape[:2]
         ph, pw = -(-h // 128) * 128, -(-w // 128) * 128
-        if (ph, pw) != (h, w):
-            image = _pad_white(image, ph - h, pw - w)
-        return torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
+        return self._to_device(_pad_white(image, ph - h, pw - w))
 
+    def upload_canvas(self, scaled_img: np.ndarray,
+                      margin_ratio: float = 0.1) -> torch.Tensor:
+        """Pad the working-resolution page into its white canvas on the
+        host (`margin` top/left, canvas_shape_for's slack bottom/right)
+        and copy it to the device, for predict_dual_tiled_resident."""
+        margin = self._stride(margin_ratio)[0]
+        h, w = scaled_img.shape[:2]
+        ch, cw = self.canvas_shape_for(h, w, margin_ratio)
+        return self._to_device(_pad_white(
+            scaled_img, ch - h - margin, cw - w - margin, margin, margin))
+
+    def _to_device(self, img: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
+
+    # -- forwards on tile batches ------------------------------------------------
     def _is_dual_head_pair(self, other: "SegmentationModel") -> bool:
         """True when `self` (region role) and `other` (textline role) are
         the same dual-head model: one forward yields both label maps."""
@@ -140,6 +197,26 @@ class SegmentationModel:
             return int(self.spec.heads[-1])
         return int(other.spec.n_classes)
 
+    def _forward_labels(self, batch: torch.Tensor,
+                        tb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """uint8 labels (n, mh, mw) of a uint8 tile batch, (n, mh, mw) or
+        (n, mh, mw, 3). With per-tile Otsu thresholds `tb`, the model sees
+        channel 0 thresholded as 0.0 / 1.0 on all 3 channels (otsu_copy,
+        main.py:191-193); else the tiles / 255 (main.py:490-503), a plane
+        repeated to 3 channels."""
+        if tb is not None:
+            plane = batch[..., 0] if batch.ndim == 4 else batch
+            ch0 = (plane.to(torch.int32) > tb[:, None, None]).to(
+                torch.float32)
+            x = ch0[:, None].expand(-1, 3, -1, -1)
+        else:
+            x = batch.to(torch.float32) / 255.0
+            x = x.permute(0, 3, 1, 2) if batch.ndim == 4 \
+                else x[:, None].expand(-1, 3, -1, -1)
+        with self._f32_guard():
+            logits = self.module.forward_nchw(x)
+        return torch.argmax(logits, 1).to(torch.uint8)
+
     def _forward_pair(self, other: "SegmentationModel", batch: torch.Tensor,
                       tb: torch.Tensor):
         """(region labels, textline labels) uint8 (n, mh, mw) of a uint8
@@ -148,93 +225,51 @@ class SegmentationModel:
 
         Dual-head model: one forward on [raw01 (channel 0 / 255), channel 0
         thresholded] and an argmax per head. Classic pair: the region model
-        sees channel 0 thresholded as 0.0 / 1.0 on all 3 channels (otsu_copy,
-        main.py:191-193) and the textline model the tiles / 255
-        (main.py:490-503), a plane repeated to 3 channels."""
-        plane = batch[..., 0] if batch.ndim == 4 else batch
-        ch0 = (plane.to(torch.int32) > tb[:, None, None]).to(torch.float32)
+        sees the thresholded tiles and the textline model the tiles / 255
+        (_forward_labels)."""
         if self._is_dual_head_pair(other):
+            plane = batch[..., 0] if batch.ndim == 4 else batch
+            ch0 = (plane.to(torch.int32) > tb[:, None, None]).to(
+                torch.float32)
             h0 = int(self.spec.heads[0])
             rawf = plane.to(torch.float32) / 255.0
-            logits = self.module.forward_nchw(torch.stack([rawf, ch0], 1))
+            with self._f32_guard():
+                logits = self.module.forward_nchw(
+                    torch.stack([rawf, ch0], 1))
             return (torch.argmax(logits[:, :h0], 1).to(torch.uint8),
                     torch.argmax(logits[:, h0:], 1).to(torch.uint8))
-        x = batch.to(torch.float32) / 255.0
-        x = x.permute(0, 3, 1, 2) if batch.ndim == 4 \
-            else x[:, None].expand(-1, 3, -1, -1)
-        logits_r = self.module.forward_nchw(ch0[:, None].expand(-1, 3, -1, -1))
-        labels_r = torch.argmax(logits_r, 1).to(torch.uint8)
-        del logits_r
-        logits_t = other.module.forward_nchw(x)
-        return labels_r, torch.argmax(logits_t, 1).to(torch.uint8)
+        return self._forward_labels(batch, tb), other._forward_labels(batch)
 
-    @torch.no_grad()
-    def predict_dual_tiled_resident_raw(self, other: "SegmentationModel",
-                                        raws, boxes, scaled_hws,
-                                        margin_ratio: float = 0.1,
-                                        morph: Optional[MorphSpec] = None,
-                                        mask_class: Optional[int] = None,
-                                        post_morph: Optional[MorphSpec] = None,
-                                        raw_hws=None):
-        """Fused region + textline segmentation of K resident raw pages
-        (upload_raw). `boxes`: per page [by, bx, crop_h, crop_w] in working
-        coordinates; `scaled_hws`: per page working (h, w), all equal;
-        `raw_hws`: the original page dims before upload_raw's padding.
-        Returns per page (region_mask uint8 (h, w) on the host, textline
-        row sum int32 (h,) on the host, textline canvas uint8 on the
-        device). `other` is the textline model: `self` for the dual-head
-        model, else the classic textline model of the same tile size."""
-        if self.input_hw != other.input_hw:
-            raise ValueError("dual tiled predict needs identical geometry")
-        if mask_class is None:
-            raise ValueError("the fused program needs mask_class")
-        k = len(raws)
-        boxes = np.asarray(boxes, np.int32).reshape(k, 4)
+    # -- tiled segmentation ------------------------------------------------------
+    def _tile_labels(self, canvases, boxes, ny: int, nx: int,
+                     margin_ratio: float, forward, valid=None):
+        """The section every tiled path shares. `canvases`: K uint8 device
+        canvases (ch, cw) or (ch, cw, 3) of one shape, whose working-image
+        origin lies at (margin, margin); `boxes`: (K, 4) [by, bx, crop_h,
+        crop_w] in working coordinates. Per page: whiten everything
+        outside the crop box (and outside `valid`, a (ch, cw) bool map of
+        the canvas pixels that hold page data), take the Otsu threshold
+        of channel 0 over the box, gather the ny x nx tiles from the box
+        origin (starts clamp into the canvas). Then `forward(batch, tb)`
+        -> a tuple of uint8 label batches runs in `_balanced_chunk`
+        chunks, and each label stream is stitched into (K, ny * stride_h,
+        nx * stride_w): every output pixel lies in exactly one tile's
+        central slab, so stitching is one reshape."""
         mh, mw = self.input_hw
-        margin = int(margin_ratio * mw)
-        sh, sw = mh - 2 * margin, mw - 2 * margin
-        if len({tuple(s) for s in scaled_hws}) != 1:
-            raise ValueError("pages span multiple working sizes; group "
-                             "before fusing")
-        th, tw = scaled_hws[0]
-        grids = {self.grid_for(int(b[2]), int(b[3]), margin_ratio)
-                 for b in boxes}
-        if len(grids) != 1:
-            raise ValueError(f"pages span multiple tile grids "
-                             f"{sorted(grids)}")
-        ny, nx = grids.pop()
-        if len({tuple(r.shape) for r in raws}) != 1:
-            raise ValueError("raw shapes differ")
-        if raw_hws is None:
-            raw_hws = [tuple(r.shape[:2]) for r in raws]
-        if len({tuple(s) for s in raw_hws}) != 1:
-            raise ValueError("pages span multiple raw sizes; group first")
-        raw_h, raw_w = raw_hws[0]
-        pad_h, pad_w = raws[0].shape[:2]
-        ch, cw = self.canvas_shape_for(th, tw, margin_ratio)
+        margin, sh, sw = self._stride(margin_ratio)
+        k = len(canvases)
+        ch, cw = canvases[0].shape[:2]
         dev = self.device
-
-        # canvas row i -> raw row (or -1 = white): margin offset baked in
-        iy = np.full(ch, -1, np.int64)
-        ix = np.full(cw, -1, np.int64)
-        iy[margin:margin + th] = resize_ops._nearest_indices(th, raw_h)
-        ix[margin:margin + tw] = resize_ops._nearest_indices(tw, raw_w)
-        iy_t = torch.from_numpy(iy).to(dev)
-        ix_t = torch.from_numpy(ix).to(dev)
-        ok = (iy_t[:, None] >= 0) & (ix_t[None, :] >= 0)
         cy = torch.arange(ch, device=dev)[:, None]
         cx = torch.arange(cw, device=dev)[None, :]
         white = torch.tensor(255, dtype=torch.uint8, device=dev)
-
         n = ny * nx
         jj, ii = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
         tiles, ts = [], []
-        for raw, (by, bx, bh, bw) in zip(raws, boxes):
-            cv = raw.index_select(0, iy_t.clamp(0, pad_h - 1)).index_select(
-                1, ix_t.clamp(0, pad_w - 1))
+        for cv, (by, bx, bh, bw) in zip(canvases, boxes):
             inside = ((cy >= margin + by) & (cy < margin + by + bh)
                       & (cx >= margin + bx) & (cx < margin + bx + bw))
-            keep = ok & inside
+            keep = inside if valid is None else valid & inside
             img = torch.where(keep[..., None] if cv.ndim == 3 else keep, cv,
                               white)
             ts.append(threshold.otsu_threshold_masked(
@@ -250,12 +285,12 @@ class SegmentationModel:
 
         total = k * n
         chunk = _balanced_chunk(total, self.runtime.tile_chunk)
-        labels_r, labels_t = [], []
+        streams = None
         for c0 in range(0, total, chunk):
-            lr, lt = self._forward_pair(other, tiles[c0:c0 + chunk],
-                                        t_tiles[c0:c0 + chunk])
-            labels_r.append(lr)
-            labels_t.append(lt)
+            out = forward(tiles[c0:c0 + chunk], t_tiles[c0:c0 + chunk])
+            streams = streams or [[] for _ in out]
+            for stream, labels in zip(streams, out):
+                stream.append(labels)
 
         def stitch(labels):
             slabs = torch.cat(labels)[:, margin:margin + sh,
@@ -263,22 +298,201 @@ class SegmentationModel:
             return (slabs.reshape(k, ny, nx, sh, sw).permute(0, 1, 3, 2, 4)
                     .reshape(k, ny * sh, nx * sw))
 
-        canvas_r, canvas_t = stitch(labels_r), stitch(labels_t)
-        big_h, big_w = ny * sh, nx * sw
-        rr = torch.arange(big_h, device=dev)[:, None]
-        cc = torch.arange(big_w, device=dev)[None, :]
-        out = []
-        for i, (_, _, bh, bw) in enumerate(boxes):
-            ins = (rr < int(bh)) & (cc < int(bw))
-            c = morphology.apply_morph(canvas_r[i], morph or (), ins)
+        return [stitch(stream) for stream in streams]
+
+    def _shape_labels(self, canvas: torch.Tensor, bh: int, bw: int,
+                      morph: Optional[MorphSpec], mask_class: Optional[int],
+                      post_morph: Optional[MorphSpec]) -> torch.Tensor:
+        """Label morphology on a stitched (big_h, big_w) canvas whose crop
+        is its top-left (bh, bw); with `mask_class`, the binary class mask
+        and `post_morph` on it (main.py:2074-2075, 457-464)."""
+        dev = canvas.device
+        ins = ((torch.arange(canvas.shape[0], device=dev)[:, None] < int(bh))
+               & (torch.arange(canvas.shape[1], device=dev)[None, :]
+                  < int(bw)))
+        c = morphology.apply_morph(canvas, morph or (), ins)
+        if mask_class is not None:
             c = (c == mask_class).to(torch.uint8)
             c = morphology.apply_morph(c, post_morph or (), ins)
+        return c
+
+    def _padded_crop(self, img_u8: np.ndarray, margin_ratio: float):
+        """The crop-upload form of a canvas: `img_u8` padded white by
+        `margin` top/left and up to the tile grid plus `margin`
+        bottom/right, on the device, with its box and grid."""
+        h, w = img_u8.shape[:2]
+        margin, sh, sw = self._stride(margin_ratio)
+        ny, nx = self.grid_for(h, w, margin_ratio)
+        canvas = self._to_device(_pad_white(
+            img_u8, ny * sh - h + margin, nx * sw - w + margin, margin,
+            margin))
+        return canvas, np.asarray([[0, 0, h, w]], np.int32), ny, nx
+
+    @torch.no_grad()
+    def predict_tiled(self, img_u8: np.ndarray, margin_ratio: float = 0.1,
+                      morph: Optional[MorphSpec] = None,
+                      pre_otsu: bool = False,
+                      mask_class: Optional[int] = None,
+                      post_morph: Optional[MorphSpec] = None) -> np.ndarray:
+        """Patch mode (main.py:231-364) of one model over an (h, w, 3)
+        image: returns the (h, w) uint8 label map after the `morph` ops,
+        or with `mask_class` the 0/1 class mask after `post_morph`. With
+        `pre_otsu` the model sees the otsu_copy binarization of the image
+        (main.py:178-194). The page is padded white so that each output
+        pixel lies in one tile's central slab (see the JAX package's
+        predict_tiled on how that differs from the reference grid within
+        `margin` of the page border)."""
+        canvas, boxes, ny, nx = self._padded_crop(img_u8, margin_ratio)
+
+        def forward(batch, tb):
+            return (self._forward_labels(batch, tb if pre_otsu else None),)
+
+        labels, = self._tile_labels([canvas], boxes, ny, nx, margin_ratio,
+                                    forward)
+        h, w = img_u8.shape[:2]
+        out = self._shape_labels(labels[0], h, w, morph, mask_class,
+                                 post_morph)
+        return out[:h, :w].cpu().numpy()
+
+    def _dual_tiled(self, other: "SegmentationModel", canvases, boxes,
+                    margin_ratio, morph, mask_class, post_morph,
+                    return_device_textline: bool, textline_projection: bool,
+                    valid=None):
+        """Fused region + textline segmentation of K canvases (see
+        _tile_labels). Per page: (region, textline labels) on the host,
+        plus the textline canvas on the device with
+        `return_device_textline`; with `textline_projection` the textline
+        canvas does not cross to the host and the crop-masked row sum
+        (int32, what reading order consumes, main.py:1809-1822) stands in
+        its place."""
+        if self.input_hw != other.input_hw:
+            raise ValueError("dual tiled predict needs identical geometry")
+        if textline_projection and not return_device_textline:
+            raise ValueError("textline_projection requires "
+                             "return_device_textline")
+        grids = {self.grid_for(int(b[2]), int(b[3]), margin_ratio)
+                 for b in boxes}
+        if len(grids) != 1:
+            raise ValueError(f"pages span multiple tile grids "
+                             f"{sorted(grids)}; group pages by grid_for() "
+                             "before fusing")
+        ny, nx = grids.pop()
+        if len({tuple(c.shape) for c in canvases}) != 1:
+            raise ValueError("canvas shapes differ")
+        canvas_r, canvas_t = self._tile_labels(
+            canvases, boxes, ny, nx, margin_ratio,
+            lambda batch, tb: self._forward_pair(other, batch, tb), valid)
+        out = []
+        for i, (_, _, bh, bw) in enumerate(boxes):
+            bh, bw = int(bh), int(bw)
+            region = self._shape_labels(canvas_r[i], bh, bw, morph,
+                                        mask_class, post_morph)
+            region = region[:bh, :bw].cpu().numpy()
             tl = canvas_t[i]
-            rowsum = torch.where(cc < int(bw), tl,
-                                 torch.zeros_like(tl)).to(torch.int32).sum(1)
-            out.append((c[:bh, :bw].cpu().numpy(),
-                        rowsum[:bh].to(torch.int32).cpu().numpy(), tl))
+            if textline_projection:
+                rowsum = tl[:bh, :bw].sum(1, dtype=torch.int32)
+                out.append((region, rowsum.cpu().numpy(), tl))
+            elif return_device_textline:
+                out.append((region, tl[:bh, :bw].cpu().numpy(), tl))
+            else:
+                out.append((region, tl[:bh, :bw].cpu().numpy()))
         return out
+
+    @torch.no_grad()
+    def predict_dual_tiled(self, other: "SegmentationModel",
+                           img_u8: np.ndarray, margin_ratio: float = 0.1,
+                           morph: Optional[MorphSpec] = None,
+                           mask_class: Optional[int] = None,
+                           post_morph: Optional[MorphSpec] = None,
+                           return_device_textline: bool = False,
+                           textline_projection: bool = False):
+        """Both segmentation passes of the page crop `img_u8` (h, w, 3),
+        uploaded padded (the crop-upload path): `self` (the region model)
+        sees the Otsu-binarized tiles with its label morph / class mask /
+        mask morph applied, `other` (the textline model) the raw tiles;
+        the dual-head model serves both in one forward. Returns
+        (region_mask_01, textline_labels[, textline canvas on the
+        device]), or in projection mode (region_mask_01,
+        row_projection[:h], textline canvas on the device)."""
+        canvas, boxes, _, _ = self._padded_crop(img_u8, margin_ratio)
+        return self._dual_tiled(other, [canvas], boxes, margin_ratio, morph,
+                                mask_class, post_morph,
+                                return_device_textline,
+                                textline_projection)[0]
+
+    @torch.no_grad()
+    def predict_dual_tiled_resident(self, other: "SegmentationModel",
+                                    canvases, boxes,
+                                    margin_ratio: float = 0.1,
+                                    morph: Optional[MorphSpec] = None,
+                                    mask_class: Optional[int] = None,
+                                    post_morph: Optional[MorphSpec] = None,
+                                    return_device_textline: bool = False,
+                                    textline_projection: bool = False):
+        """predict_dual_tiled reading the page crops out of RESIDENT
+        margin-padded working canvases (upload_canvas) of one shape, with
+        per-page box offsets [by, bx, crop_h, crop_w] in working
+        coordinates. Equal to predict_dual_tiled on the cropped page:
+        tiles read white outside the crop box exactly like the padded
+        crop, and the Otsu histogram covers the same crop pixels. Returns
+        one tuple per page."""
+        boxes = np.asarray(boxes, np.int32).reshape(len(canvases), 4)
+        return self._dual_tiled(other, canvases, boxes, margin_ratio, morph,
+                                mask_class, post_morph,
+                                return_device_textline, textline_projection)
+
+    @torch.no_grad()
+    def predict_dual_tiled_resident_raw(self, other: "SegmentationModel",
+                                        raws, boxes, scaled_hws,
+                                        margin_ratio: float = 0.1,
+                                        morph: Optional[MorphSpec] = None,
+                                        mask_class: Optional[int] = None,
+                                        post_morph: Optional[MorphSpec] = None,
+                                        return_device_textline: bool = False,
+                                        raw_hws=None,
+                                        textline_projection: bool = False):
+        """predict_dual_tiled_resident reading K resident raw pages
+        (upload_raw, one plane or RGB): each working canvas is gathered on
+        the device through the exact nearest index maps. `boxes`: per page
+        [by, bx, crop_h, crop_w] in working coordinates; `scaled_hws`: per
+        page working (h, w), all equal; `raw_hws`: the original page dims
+        before upload_raw's padding. `other` is the textline model: `self`
+        for the dual-head model, else the classic textline model of the
+        same tile size."""
+        k = len(raws)
+        boxes = np.asarray(boxes, np.int32).reshape(k, 4)
+        if len({tuple(s) for s in scaled_hws}) != 1:
+            raise ValueError("pages span multiple working sizes; group "
+                             "before fusing")
+        th, tw = scaled_hws[0]
+        if len({tuple(r.shape) for r in raws}) != 1:
+            raise ValueError("raw shapes differ")
+        if raw_hws is None:
+            raw_hws = [tuple(r.shape[:2]) for r in raws]
+        if len({tuple(s) for s in raw_hws}) != 1:
+            raise ValueError("pages span multiple raw sizes; group first")
+        raw_h, raw_w = raw_hws[0]
+        pad_h, pad_w = raws[0].shape[:2]
+        margin = self._stride(margin_ratio)[0]
+        ch, cw = self.canvas_shape_for(th, tw, margin_ratio)
+        dev = self.device
+
+        # canvas row i -> raw row (or -1 = white): margin offset baked in
+        iy = np.full(ch, -1, np.int64)
+        ix = np.full(cw, -1, np.int64)
+        iy[margin:margin + th] = resize_ops._nearest_indices(th, raw_h)
+        ix[margin:margin + tw] = resize_ops._nearest_indices(tw, raw_w)
+        iy_t = torch.from_numpy(iy).to(dev)
+        ix_t = torch.from_numpy(ix).to(dev)
+        valid = (iy_t[:, None] >= 0) & (ix_t[None, :] >= 0)
+        rows = iy_t.clamp(0, pad_h - 1)
+        cols = ix_t.clamp(0, pad_w - 1)
+        canvases = [raw.index_select(0, rows).index_select(1, cols)
+                    for raw in raws]
+        return self._dual_tiled(other, canvases, boxes, margin_ratio, morph,
+                                mask_class, post_morph,
+                                return_device_textline, textline_projection,
+                                valid)
 
 
 class ModelBundle:

@@ -7,9 +7,10 @@ dilate pads with -inf, erode with +inf).
 
 Device half: separable two-pass max/min filters on uint8 masks of shape
 (H, W) or (B, H, W), computed in float32 (exact for integers) through
-`max_pool2d`, whose implicit padding is -inf. The host half
-(`dilate_host` and its helpers, all the page-box decision needs) is
-copied from the JAX package's module, which imports jax.
+`max_pool2d`, whose implicit padding is -inf. The host half (numpy, and
+the native library for binary masks) is copied from the JAX package's
+module, which imports jax: the page-box decision, the host-sweep deskew's
+crop erode and the per-region OPEN + CLOSE of the line separator use it.
 """
 
 from __future__ import annotations
@@ -108,8 +109,9 @@ def _binary_foreground_value(img: np.ndarray):
     return None
 
 
-def _native_dilate(img: np.ndarray, kernel_size: int, iterations: int):
-    """Binary 2-D dilation through the native library; None if not
+def _native_morph(img: np.ndarray, kernel_size: int, iterations: int,
+                  dilate_op: bool):
+    """Dispatch binary 2-D morphology to the native library; None if not
     applicable (grayscale input or library unavailable)."""
     from sbb_textline_detection_tpu_torch import native_bridge
 
@@ -118,7 +120,7 @@ def _native_dilate(img: np.ndarray, kernel_size: int, iterations: int):
     v = _binary_foreground_value(img)
     if v is None:
         return None
-    out = native_bridge.morph_binary(img, kernel_size, iterations, True)
+    out = native_bridge.morph_binary(img, kernel_size, iterations, dilate_op)
     return (out * np.asarray(v, dtype=img.dtype)).astype(img.dtype)
 
 
@@ -141,8 +143,44 @@ def _window_reduce_host(img: np.ndarray, k: int, op, pad_value) -> np.ndarray:
 
 
 def dilate_host(img: np.ndarray, kernel_size: int = 5, iterations: int = 1) -> np.ndarray:
-    out = _native_dilate(img, kernel_size, iterations)
+    out = _native_morph(img, kernel_size, iterations, dilate_op=True)
     if out is not None:
         return out
     k = _effective_size(kernel_size, iterations)
     return _window_reduce_host(img, k, np.max, -np.inf).astype(img.dtype)
+
+
+def erode_host(img: np.ndarray, kernel_size: int = 5, iterations: int = 1) -> np.ndarray:
+    out = _native_morph(img, kernel_size, iterations, dilate_op=False)
+    if out is not None:
+        return out
+    k = _effective_size(kernel_size, iterations)
+    return _window_reduce_host(img, k, np.min, np.inf).astype(img.dtype)
+
+
+def morph_seq_host(img: np.ndarray, ops) -> np.ndarray:
+    """Apply a sequence of ("erode"|"dilate"|"open"|"close", kernel,
+    iterations) passes back to back. For binary 2-D masks this is ONE
+    native call (one dtype conversion + one foreground scan for the whole
+    chain); the composed host passes are the fallback and the parity
+    oracle."""
+    prims = morph_primitives(ops)
+    from sbb_textline_detection_tpu_torch import native_bridge
+
+    if native_bridge.available():
+        v = _binary_foreground_value(img)
+        if v is not None:
+            out = native_bridge.morph_seq(img, prims)
+            return (out * np.asarray(v, dtype=img.dtype)).astype(img.dtype)
+    x = img
+    for op, k, it in prims:
+        x = erode_host(x, k, it) if op == "erode" else dilate_host(x, k, it)
+    return x
+
+
+def morph_open_host(img: np.ndarray, kernel_size: int = 5) -> np.ndarray:
+    return dilate_host(erode_host(img, kernel_size), kernel_size)
+
+
+def morph_close_host(img: np.ndarray, kernel_size: int = 5) -> np.ndarray:
+    return erode_host(dilate_host(img, kernel_size), kernel_size)

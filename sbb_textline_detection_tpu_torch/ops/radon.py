@@ -22,7 +22,6 @@ in .gitignore) and bound through ctypes.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,6 +29,8 @@ import shutil
 import subprocess
 
 import torch
+
+from sbb_textline_detection_tpu_torch.ops import precision
 
 # Number of kernel launches since the last reset (tests and the chip smoke
 # script zero it, drive the pipeline, and read it back).
@@ -46,17 +47,6 @@ _PLAIN_CHUNK = 8
 
 _lib = None
 build_log = ""          # nvcc's report (-Xptxas -v) of this process's build
-
-
-@contextlib.contextmanager
-def full_f32_matmul():
-    """Run float32 matmuls in full float32 (no TF32) inside the block."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _nvcc() -> str:
@@ -121,7 +111,7 @@ def radon_pairs_plain(canvases: torch.Tensor, cosv: torch.Tensor,
     c = float(s // 2)
     idx = torch.arange(s, dtype=torch.float32, device=dev)
     out = []
-    with full_f32_matmul():
+    with precision.full_f32():
         for k0 in range(0, ridx.shape[0], _PLAIN_CHUNK):
             ri = ridx[k0:k0 + _PLAIN_CHUNK]
             ai = aidx[k0:k0 + _PLAIN_CHUNK]

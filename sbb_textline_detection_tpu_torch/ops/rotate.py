@@ -1,7 +1,8 @@
 """Center rotation on the host (copies of the numpy functions of
 sbb_textline_detection_tpu/ops/rotate.py, whose module imports jax):
-`rotation_matrix_host` (:193 there) and `rotate_image_host` (:129) with
-its Keys bicubic weights `_cubic_weights` (:24)."""
+`rotation_matrix_host` (:193 there), `rotate_image_host` (:129) with its
+Keys bicubic weights `_cubic_weights` (:24), and `rotate_mask_host`
+(:108), the rotate-then-binarize step of the per-region line separator."""
 
 from __future__ import annotations
 
@@ -19,6 +20,25 @@ def _cubic_weights(f):
         return ((A * x - 5.0 * A) * x + 8.0 * A) * x - 4.0 * A
 
     return (k2(1.0 + f), k1(f), k1(1.0 - f), k2(2.0 - f))
+
+
+def rotate_mask_host(mask: np.ndarray, angle_deg: float,
+                     threshold: float = 1e-3) -> np.ndarray:
+    """Bicubic-rotate a binary (0/255-style) mask and threshold
+    (|v| > threshold) -> uint8 {0,1}: the reference's rotate-then-binarize
+    idiom (upstream main.py:1494-1497). Uses the f32 native kernel when it
+    is built; on 0/255 inputs its thresholded mask equals the f64 path's."""
+    from sbb_textline_detection_tpu_torch import native_bridge
+
+    if angle_deg == 0.0:
+        # bicubic at zero fractional offset is an exact identity
+        # (weights are [0, 1, 0, 0]); skip the warp entirely
+        return (np.asarray(mask) != 0).astype(np.uint8)
+    if native_bridge.available():
+        rot = native_bridge.rotate_f32(mask, angle_deg)
+        return (np.abs(rot) > threshold).astype(np.uint8)
+    rot = rotate_image_host(mask.astype(np.float64), angle_deg, order=3)
+    return (np.abs(rot) > threshold).astype(np.uint8)
 
 
 def rotate_image_host(img: np.ndarray, angle_deg: float, order: int = 3) -> np.ndarray:

@@ -1,7 +1,10 @@
-"""Deskew angle search and deskewed line profiles, resident on the device
-(counterpart of the resident path of sbb_textline_detection_tpu/pipeline/
-deskew.py; see that module for the derivation and the reference quirks
-the scorer reproduces).
+"""Deskew angle search and deskewed line profiles (counterpart of
+sbb_textline_detection_tpu/pipeline/deskew.py; see that module for the
+derivation and the reference quirks the scorer reproduces). Two routes
+reach the Radon kernel: the resident chain, and the host sweep that serves
+a page when the chain is switched off or fails.
+
+Resident chain.
 
 For each group of up to `region_batch` regions of a page, one chain of
 device work reads the textline canvas where the fused segmentation left
@@ -17,6 +20,15 @@ PyTorch sizes each group's buffer to its largest crop rounded up to 256:
 there is no buffer cap and no "region exceeds the buffer" exit. The row
 and column profiles are rounded at the buffer's half width / half height
 (the shear-bin offset K), as in the JAX program.
+
+Host sweep (`DeskewEngine.best_angles`). The host renders each region's
+eroded crop into an S x S uint8 canvas (`_canvas_into`, the same index
+maps as the chain's gather), uploads a group's (R, S, S) canvases to the
+engine's device, and there runs the coarse sweep and the vertical sweep as
+two Radon launches per group plus the scorer; the host picks the angles.
+Every group is dispatched before the first result is fetched. The JAX
+package's 1-bit canvas packing and its ahead-of-time program cache are
+not carried over: canvases go up as plain uint8 and PyTorch runs eagerly.
 """
 
 from __future__ import annotations
@@ -27,7 +39,8 @@ import numpy as np
 import torch
 
 from sbb_textline_detection_tpu_torch.core.config import DeskewConfig
-from sbb_textline_detection_tpu_torch.ops import morphology, profiles, radon
+from sbb_textline_detection_tpu_torch.ops import (morphology, precision,
+                                                 profiles, radon)
 
 _BUCKETS = (256, 512, 1024, 1536, 2048)
 
@@ -134,7 +147,7 @@ def _hat_projection_rows(m: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
     A = _hat(sy[None, :, None] - fy[:, None, :])      # (B, s_bin, y)
     gx = -b * (sx - cx0) + float(K)                    # (B, bufW)
     Bm = _hat(sx[None, :, None] - gx[:, None, :])     # (B, u_bin, x)
-    with radon.full_f32_matmul():
+    with precision.full_f32():
         U = torch.bmm(torch.bmm(A, m), Bm.transpose(1, 2))
     n = m.shape[0]
     L = bufH + bufW
@@ -231,12 +244,17 @@ def _resident_chain(mask, boxes, cy, cx, angles, *, B, ac_n, s, cfg,
 
 
 class DeskewEngine:
-    """Resident deskew: one chain of device work per group of regions."""
+    """Deskew sweeps on `device`: one chain of device work per group of
+    regions (resident_dispatch / resident_collect), or batched sweeps of
+    host-rendered canvases (best_angles)."""
 
     def __init__(self, cfg: DeskewConfig = DeskewConfig(),
                  max_canvas: int = 2048, region_batch: int = 8, morph_kernel: int = 5,
-                 crop_erode_iterations: int = 2):
+                 crop_erode_iterations: int = 2, device="cuda"):
         self.cfg = cfg
+        # where best_angles uploads its canvases; the resident chain runs
+        # where its textline canvas lies
+        self.device = torch.device(device)
         self.max_canvas = max_canvas
         self.region_batch = max(1, region_batch)
         # crop erode (main.py:1734) and the line separator's OPEN/CLOSE
@@ -249,6 +267,138 @@ class DeskewEngine:
                                      cfg.vertical_range[1],
                                      cfg.vertical_steps).astype(np.float32)
 
+    # -- host sweep ------------------------------------------------------------
+    def _canvas_into(self, crop: np.ndarray, out: np.ndarray) -> None:
+        """Center `crop` (binarized, downscaled if needed) into square
+        `out`: exactly the _canvas_index_maps gather, so the host sweep
+        and the resident chain render identical canvases."""
+        s = out.shape[0]
+        h, w = crop.shape
+        cy, cx = _canvas_index_maps(h, w, s, self.cfg.pad_factor)
+        oky = cy >= 0
+        okx = cx >= 0
+        out[np.ix_(oky, okx)] = crop[np.ix_(cy[oky], cx[okx])] != 0
+
+    def _bucket_for(self, crops: Sequence[np.ndarray]) -> int:
+        return self._bucket_for_sizes([c.shape for c in crops])
+
+    @torch.no_grad()
+    def _sweep_dispatch(self, canvases: np.ndarray, s: int,
+                        angles: np.ndarray) -> torch.Tensor:
+        """Upload one group's (R, S, S) uint8 canvases and enqueue its
+        sweep: the Radon projections of every (region, angle) pair
+        (ops/radon.radon_pairs: the CUDA kernel on the card) and their
+        scores. Returns the stacked [valid, score] tensor on the device;
+        the fetch is deferred so that several groups queue before the
+        first result is pulled back."""
+        canv = torch.from_numpy(np.ascontiguousarray(canvases, np.uint8)
+                                ).to(self.device)
+        ang = torch.from_numpy(np.asarray(angles, np.float32)).to(self.device)
+        P = radon.radon_pairs(canv, ang)
+        return _score_profiles_impl(
+            P, sigma=float(self.cfg.sigma),
+            multiplier=float(self.cfg.peak_threshold_multiplier),
+            pos_min=float(self.cfg.pos_peak_min_value))
+
+    def _sweep_collect(self, vs_dev: torch.Tensor, r: int,
+                       angles: np.ndarray) -> List[Tuple[float, float]]:
+        """Fetch one group's [valid, score] result and pick per-region
+        (best angle, best score) pairs: the first maximizer among the
+        valid angles (the score rides along for the vertical re-sweep
+        guard, DEVIATIONS #15)."""
+        a = angles.shape[0]
+        vs = vs_dev.cpu().numpy()
+        valid = vs[0].reshape(r, a) != 0.0
+        score = vs[1].reshape(r, a)
+        out = []
+        for i in range(r):
+            v = valid[i]
+            if not v.any():
+                # upstream: argmax of empty -> except -> 0
+                out.append((0.0, float("-inf")))
+            else:
+                j = int(np.argmax(score[i][v]))
+                out.append((float(angles[v][j]), float(score[i][v][j])))
+        return out
+
+    def _sweep_batched(self, canvases: np.ndarray, s: int,
+                       angles: np.ndarray) -> List[Tuple[float, float]]:
+        """(R, S, S) canvases -> per-region (best angle, best score)."""
+        return self._sweep_collect(self._sweep_dispatch(canvases, s, angles),
+                                   canvases.shape[0], angles)
+
+    def best_angles(self, crops: Sequence[np.ndarray]) -> List[float]:
+        """Reference return_deskew_slope (main.py:1601-1718) for every
+        region of a page in batched sweeps: coarse [-25, 25] plus the
+        vertical [-90, -50] range, combined per DEVIATIONS #15 (score
+        comparison by default; reference-faithful trigger + replace at
+        vertical_resweep_guard=False)."""
+        crops = list(crops)
+        if not crops:
+            return []
+        s = self._bucket_for(crops)
+        coarse = self._sweep_grouped(crops, s, self._coarse)
+        angles = [a for a, _ in coarse]
+        if self.cfg.vertical_resweep_guard:
+            # DEVIATIONS #15: sweep the vertical range for EVERY region and
+            # take its result exactly when it out-scores the coarse one
+            # (the resident chain computes both sweeps unconditionally;
+            # this keeps the two routes decision-identical)
+            vert = self._sweep_grouped(crops, s, self._vertical)
+            for i, (va, vsc) in enumerate(vert):
+                if vsc > coarse[i][1]:
+                    angles[i] = va
+            return angles
+        # reference-faithful: re-sweep only the steep regions and replace
+        # unconditionally (main.py:1669-1714)
+        steep = [i for i, a in enumerate(angles)
+                 if abs(a) > self.cfg.vertical_trigger_angle]
+        if steep:
+            vert = self._sweep_grouped([crops[i] for i in steep], s,
+                                       self._vertical)
+            for i, (va, _) in zip(steep, vert):
+                angles[i] = va
+        return angles
+
+    def _batch_buckets(self) -> List[int]:
+        """Region-batch sizes: powers of two up to region_batch. A page's
+        regions are split greedily into the smallest size that holds the
+        rest, so a 1-2 region tail (or a 1-2 region vertical re-sweep)
+        does not sweep a full region_batch of empty slots."""
+        b, buckets = 1, []
+        while b < self.region_batch:
+            buckets.append(b)
+            b *= 2
+        buckets.append(self.region_batch)
+        return buckets
+
+    def _sweep_grouped(self, crops: Sequence[np.ndarray], s: int,
+                       angles: np.ndarray) -> List[Tuple[float, float]]:
+        """Render and dispatch every group's sweep, then collect: the
+        groups queue back to back on the device. Empty canvas slots score
+        all-invalid and are dropped."""
+        buckets = self._batch_buckets()
+        pending = []
+        start = 0
+        while start < len(crops):
+            remaining = len(crops) - start
+            b = next((bb for bb in buckets if bb >= remaining), buckets[-1])
+            group = crops[start:start + b]
+            buf = np.zeros((b, s, s), dtype=np.uint8)
+            for i, crop in enumerate(group):
+                self._canvas_into(crop, buf[i])
+            pending.append((self._sweep_dispatch(buf, s, angles), b,
+                            len(group)))
+            start += b
+        out: List[Tuple[float, float]] = []
+        for vs_dev, b, n_real in pending:
+            out.extend(self._sweep_collect(vs_dev, b, angles)[:n_real])
+        return out
+
+    def best_angle(self, crop: np.ndarray) -> float:
+        return self.best_angles([crop])[0]
+
+    # -- device-resident chain --------------------------------------------------
     def _bucket_for_sizes(self, sizes) -> int:
         target = 32
         for h, w in sizes:

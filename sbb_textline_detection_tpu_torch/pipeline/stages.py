@@ -1,20 +1,40 @@
-"""Pipeline stages of the raw-upload main path (counterpart of the parts of
-sbb_textline_detection_tpu/pipeline/stages.py that this path runs).
-Stages raise freely; degrade-don't-crash is handled by the detector.
+"""Pipeline stages of the single-page paths (counterpart of the parts of
+sbb_textline_detection_tpu/pipeline/stages.py that they run). Stages raise
+freely; degrade-don't-crash is handled by the detector.
+
+The JAX package's stages probe duck-typed models for what they can do;
+the port's bundle always holds SegmentationModels, so those branches (and
+with them the host `otsu_copy` binarization) are left out.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import logging
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
 
 from sbb_textline_detection_tpu_torch.core.config import PipelineConfig
+from sbb_textline_detection_tpu_torch.models.runner import ModelBundle
 from sbb_textline_detection_tpu_torch.ops import contours as contour_ops
 from sbb_textline_detection_tpu_torch.ops import morphology
 from sbb_textline_detection_tpu_torch.ops import resize as resize_ops
 from sbb_textline_detection_tpu_torch.ops import rotate as rotate_ops
 from sbb_textline_detection_tpu_torch.pipeline import lines as lines_mod
+from sbb_textline_detection_tpu_torch.pipeline.deskew import DeskewEngine
+
+logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class ScaledImage:
+    image: np.ndarray          # resized working image (H, W, 3) uint8
+    height_org: int
+    width_org: int
+    scale_x: float
+    scale_y: float
 
 
 def working_dims(image: np.ndarray, cfg: PipelineConfig) -> Tuple[int, int]:
@@ -27,6 +47,14 @@ def working_dims(image: np.ndarray, cfg: PipelineConfig) -> Tuple[int, int]:
     else:
         target_h = int(h * rp.large_page_scale)
     return target_h, int(target_h * w / float(h))
+
+
+def scale_image(image: np.ndarray, cfg: PipelineConfig) -> ScaledImage:
+    """Global resize policy (main.py:196-214) applied on host."""
+    h, w = image.shape[:2]
+    target_h, target_w = working_dims(image, cfg)
+    scaled = resize_ops.resize_nearest_host(image, target_h, target_w)
+    return ScaledImage(scaled, h, w, target_w / float(w), target_h / float(h))
 
 
 class LazyScaledImage:
@@ -84,6 +112,128 @@ def _page_box_model_res(small: np.ndarray, h: int, w: int,
     return [x0, y0, max(1, x1 - x0 + 1), max(1, y1 - y0 + 1)]
 
 
+def extract_page(scaled: ScaledImage, models: ModelBundle,
+                 cfg: PipelineConfig, on_fallback=None
+                 ) -> Tuple[np.ndarray, List[int], np.ndarray]:
+    """Border/printspace detection (main.py:384-437): whole-image page
+    model, largest component's bbox decided at model resolution, crop.
+    Fallback on any failure: the whole image, and `on_fallback` is told
+    ("whole_page_box")."""
+    img = scaled.image
+    h, w = img.shape[:2]
+    try:
+        small = models.page.predict_whole_small(img)
+        box = _page_box_model_res(small, h, w, cfg)
+    except Exception:
+        logger.warning("page-border detection failed; using the whole "
+                       "page", exc_info=True)
+        if on_fallback is not None:
+            on_fallback("whole_page_box")
+        box = [0, 0, w - 1, h - 1]
+    return _crop_to_box(img, box)
+
+
+def _crop_to_box(img: np.ndarray, box: List[int]
+                 ) -> Tuple[np.ndarray, List[int], np.ndarray]:
+    """Crop + page_coord + cont_page from a page box (main.py:405-437)."""
+    cropped = img[box[1]:box[1] + box[3], box[0]:box[0] + box[2]]
+    page_coord = [box[1], box[1] + box[3], box[0], box[0] + box[2]]
+    cont_page = np.array([[page_coord[2], page_coord[0]],
+                          [page_coord[3], page_coord[0]],
+                          [page_coord[3], page_coord[1]],
+                          [page_coord[2], page_coord[1]]])
+    return cropped, page_coord, cont_page
+
+
+def _region_shaping(cfg: PipelineConfig) -> dict:
+    """The region-mask shaping every segmentation call asks for
+    (main.py:2074-2075, 457-464): erode x3 / dilate x4 on the label map,
+    text-class mask, morph OPEN + CLOSE."""
+    k = cfg.morphology.kernel_size
+    return dict(
+        morph=(("erode", k, cfg.morphology.region_erode_iterations),
+               ("dilate", k, cfg.morphology.region_dilate_iterations)),
+        mask_class=cfg.region.text_class_value,
+        post_morph=(("open", k, 1), ("close", k, 1)))
+
+
+def extract_text_regions(image_page: np.ndarray, models: ModelBundle,
+                         cfg: PipelineConfig) -> np.ndarray:
+    """Region segmentation + mask shaping (main.py:439-454, 2074-2075,
+    457-464) by the region model alone: channel-0 Otsu copy, patch-mode
+    forward, the shaping of _region_shaping. Returns the final binary
+    (H, W) uint8 0/1 text-region mask."""
+    return models.region.predict_tiled(
+        image_page.astype(np.uint8), cfg.tiling.margin_ratio, pre_otsu=True,
+        **_region_shaping(cfg))
+
+
+def _can_fuse(models: ModelBundle) -> bool:
+    return models.region.input_hw == models.textline.input_hw
+
+
+def extract_regions_and_textline(image_page: np.ndarray, models: ModelBundle,
+                                 cfg: PipelineConfig,
+                                 return_device_textline: bool = False,
+                                 textline_projection: bool = False):
+    """Fused region + textline segmentation of the page crop, uploaded
+    padded (runner.predict_dual_tiled). Returns (region_mask,
+    textline_labels[, textline_dev]), in projection mode (region_mask,
+    row_projection, textline_dev), or None when the bundle cannot fuse
+    (mismatched tile geometry); the caller then runs extract_text_regions
+    / textline_mask_total separately."""
+    if not _can_fuse(models):
+        return None
+    return models.region.predict_dual_tiled(
+        models.textline, image_page.astype(np.uint8),
+        cfg.tiling.margin_ratio,
+        return_device_textline=return_device_textline,
+        textline_projection=(return_device_textline
+                             and textline_projection),
+        **_region_shaping(cfg))
+
+
+def extract_regions_and_textline_resident(canvases, boxes,
+                                          models: ModelBundle,
+                                          cfg: PipelineConfig,
+                                          return_device_textline: bool = False,
+                                          textline_projection: bool = False):
+    """Fused segmentation reading crops from RESIDENT working canvases
+    (runner.upload_canvas) with per-page box offsets. Returns one tuple
+    per page as extract_regions_and_textline, or None when the bundle
+    cannot fuse."""
+    if not _can_fuse(models):
+        return None
+    return models.region.predict_dual_tiled_resident(
+        models.textline, canvases, boxes, cfg.tiling.margin_ratio,
+        return_device_textline=return_device_textline,
+        textline_projection=(return_device_textline
+                             and textline_projection),
+        **_region_shaping(cfg))
+
+
+def extract_regions_and_textline_resident_raw(raws, boxes, scaled_hws,
+                                              models: ModelBundle,
+                                              cfg: PipelineConfig,
+                                              return_device_textline:
+                                              bool = False,
+                                              raw_hws=None,
+                                              textline_projection:
+                                              bool = False):
+    """Fused segmentation reading from RESIDENT raw pages (upload_raw):
+    the working canvas is gathered on the device through exact nearest
+    index maps. Returns one tuple per page as
+    extract_regions_and_textline, or None when the bundle cannot fuse."""
+    if not _can_fuse(models):
+        return None
+    return models.region.predict_dual_tiled_resident_raw(
+        models.textline, raws, boxes, scaled_hws, cfg.tiling.margin_ratio,
+        return_device_textline=return_device_textline, raw_hws=raw_hws,
+        textline_projection=(return_device_textline
+                             and textline_projection),
+        **_region_shaping(cfg))
+
+
 def region_contours_and_boxes(region_mask: np.ndarray, cfg: PipelineConfig
                               ) -> Tuple[List[np.ndarray], List[List[int]]]:
     """Text-region contours (main.py:465-481) from the shaped binary mask:
@@ -100,6 +250,40 @@ def region_contours_and_boxes(region_mask: np.ndarray, cfg: PipelineConfig
             main_contours.append(c)
     boxes = [list(contour_ops.bounding_rect(c)) for c in main_contours]
     return main_contours, boxes
+
+
+def textline_mask_total(image_page: np.ndarray, models: ModelBundle,
+                        cfg: PipelineConfig) -> np.ndarray:
+    """Textline segmentation (main.py:490-503) by the textline model
+    alone: patch mode on the raw crop; returns the (H, W) label map."""
+    return models.textline.predict_tiled(image_page.astype(np.uint8),
+                                         cfg.tiling.margin_ratio)
+
+
+def textline_postprocess(crop_labels: np.ndarray, slope: float,
+                         contour: np.ndarray, box: List[int],
+                         cfg: PipelineConfig) -> List[np.ndarray]:
+    """Per-region line extraction (main.py:1472-1524) on the host: morph
+    open+close the textline crop, rotate by the slope, rotate the region
+    contour's points through the same affine (DEVIATIONS #5), split into
+    per-line quads. Any failure -> no lines (main.py:1520-1522)."""
+    try:
+        k = cfg.morphology.kernel_size
+        mask = (crop_labels.astype(np.uint8) * np.uint8(255))  # uint8 wrap, as upstream
+        mask = morphology.morph_seq_host(mask, (("open", k, 1),
+                                                ("close", k, 1)))
+        dst = rotate_ops.rotate_mask_host(mask, slope)
+        big = _contour_in_rotated_frame(contour, slope, box)
+        vertical = (abs(slope) > cfg.deskew.vertical_line_split_abs
+                    and not cfg.line_split.vertical_axis_fix)
+        # with vertical_axis_fix (DEVIATIONS #14) the rotated patch is
+        # already horizontal-text, so the HORIZONTAL split applies
+        _, boxes_rot = lines_mod.separate_lines(
+            dst, big, slope, cfg.line_split, vertical=vertical,
+            band=_contour_band(big, cfg, vertical))
+        return boxes_rot
+    except Exception:
+        return []
 
 
 def _contour_band(big: np.ndarray, cfg: PipelineConfig, vertical: bool):
@@ -146,12 +330,101 @@ def textline_postprocess_profile(profile_pair, slope: float,
         return []
 
 
-def lines_from_profiles(contours: List[np.ndarray], boxes: List[List[int]],
-                        cfg: PipelineConfig, slopes: List[float],
-                        profiles) -> List[List[np.ndarray]]:
-    """The resident branch of the JAX package's slopes_and_lines
-    (reference do_work_of_slopes, main.py:1721-1799): the host peak logic
-    per region, in region order, on the slopes and deskewed profiles that
-    DeskewEngine.resident_collect fetched."""
-    return [textline_postprocess_profile(p, s, contour, box, cfg)
-            for p, s, contour, box in zip(profiles, slopes, contours, boxes)]
+def deskew_dispatch_resident(boxes: List[List[int]], engine: DeskewEngine,
+                             textline_dev):
+    """Enqueue the resident deskew chain for a page's regions (see
+    DeskewEngine.resident_dispatch); returns a handle for slopes_and_lines
+    or None when the chain cannot run (the host sweep then serves the
+    page)."""
+    if textline_dev is None:
+        return None
+    try:
+        return engine.resident_dispatch(textline_dev, boxes)
+    except Exception:
+        logger.warning("resident deskew dispatch failed for %d regions; "
+                       "host path will run", len(boxes), exc_info=True)
+        return None
+
+
+def slopes_and_lines(contours: List[np.ndarray], boxes: List[List[int]],
+                     textline_mask: Optional[np.ndarray],
+                     cfg: PipelineConfig, engine: DeskewEngine,
+                     textline_dev=None, deskew_handle=None,
+                     textline_mask_fetch=None, deskew_attempted=False,
+                     on_fallback=None, timings: Optional[dict] = None
+                     ) -> Tuple[List[float], List[List[np.ndarray]]]:
+    """Reference get_slopes_and_deskew + do_work_of_slopes
+    (main.py:1721-1799), in region order, without the multiprocessing
+    fan-out: the angle sweep runs on the device.
+
+    With `textline_dev` (the fused program's textline canvas on the
+    device) the whole per-region chain runs resident (deskew_handle, or a
+    dispatch made here unless `deskew_attempted`) and the host only does
+    the peak logic on the fetched profiles. When that route is absent or
+    fails, the host sweep serves the page: crop + erode the host textline
+    mask (`textline_mask`, or `textline_mask_fetch()` when only the
+    device holds it), DeskewEngine.best_angles, the slope-sentinel and
+    slope_reject_abs rules, textline_postprocess per region.
+    `on_fallback(rung)` is told when a route that was tried gave way:
+    "host_sweep" after a failed chain, "slope_zero" after a failed
+    sweep. `timings["line_split"]` receives the seconds of the per-region
+    line extraction on the host."""
+    def fell_back(rung):
+        if on_fallback is not None:
+            on_fallback(rung)
+
+    def timed_lines(make_lines):
+        t0 = time.time()
+        lines = make_lines()
+        if timings is not None:
+            timings["line_split"] = time.time() - t0
+        return lines
+
+    tried_resident = deskew_attempted or deskew_handle is not None
+    if deskew_handle is None and textline_dev is not None \
+            and not deskew_attempted:
+        tried_resident = True
+        deskew_handle = deskew_dispatch_resident(boxes, engine,
+                                                 textline_dev)
+    if deskew_handle is not None:
+        try:
+            slopes, profiles = engine.resident_collect(deskew_handle)
+            return slopes, timed_lines(lambda: [
+                textline_postprocess_profile(p, s, contour, box, cfg)
+                for p, s, contour, box in zip(profiles, slopes, contours,
+                                              boxes)])
+        except Exception:
+            logger.warning(
+                "resident deskew failed for %d regions; falling back to "
+                "the host path", len(boxes), exc_info=True)
+    if tried_resident:
+        fell_back("host_sweep")
+    if textline_mask is None and textline_mask_fetch is not None:
+        # projection mode shipped no host canvas; fetch it from the
+        # device only now that the host path needs it
+        textline_mask = textline_mask_fetch()
+    if textline_mask is None:
+        return ([0.0] * len(boxes), [[] for _ in boxes])
+    crops: List[np.ndarray] = []
+    for box in boxes:
+        x, y, w, h = box
+        crop = textline_mask[y:y + h, x:x + w]
+        crops.append(morphology.erode_host(
+            crop, cfg.morphology.kernel_size,
+            cfg.morphology.deskew_crop_erode_iterations))
+    try:
+        raw_slopes = engine.best_angles(crops)
+    except Exception:
+        logger.warning(
+            "deskew sweep failed for %d regions; using slope 0 "
+            "(reference sentinel path, main.py:1744-1747)",
+            len(crops), exc_info=True)
+        fell_back("slope_zero")
+        raw_slopes = [cfg.deskew.slope_sentinel] * len(crops)
+    slopes = [0.0 if (slope == cfg.deskew.slope_sentinel
+                      or abs(slope) > cfg.deskew.slope_reject_abs) else slope
+              for slope in raw_slopes]
+    return slopes, timed_lines(lambda: [
+        textline_postprocess(crop, slope, contour, box, cfg)
+        for crop, slope, contour, box in zip(crops, slopes, contours,
+                                             boxes)])

@@ -182,7 +182,8 @@ def test_classic_fused_matches_jax(pairs, kind, seed, color):
         raw_hws=[raw.shape[:2]], textline_projection=True)[0]
     got_r, got_p, got_tl = tm_r.predict_dual_tiled_resident_raw(
         tm_t, [tm_r.upload_raw(raw)], [box], [(th, tw)], morph=MORPH,
-        mask_class=1, post_morph=POST, raw_hws=[raw.shape[:2]])[0]
+        mask_class=1, post_morph=POST, return_device_textline=True,
+        raw_hws=[raw.shape[:2]], textline_projection=True)[0]
     assert 0 < want_r.sum() < want_r.size and want_p.sum() > 0
     bh, bw = box[2], box[3]
     assert got_r.shape == want_r.shape == (bh, bw)

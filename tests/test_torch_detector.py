@@ -124,9 +124,12 @@ def test_degraded_page_still_writes_xml(bundles, monkeypatch):
     def boom(*a, **k):
         raise RuntimeError("injected")
 
-    monkeypatch.setattr(det.models.region, "predict_dual_tiled_resident_raw",
-                        boom)
+    # a failure before any page box exists: the raw upload fails, and so
+    # does the standard path's host resize
+    monkeypatch.setattr(det.models.region, "upload_raw", boom)
+    monkeypatch.setattr(detector.stages, "scale_image", boom)
     res = det.process_image(_page(0, 200, 160), "p.png")
     assert res.degraded and det.degraded == 1
+    assert det.fallbacks == {"standard_path": 1}
     assert res.contours == [] and b"PcGts" in ET.tostring(
         res.xml_tree.getroot())

@@ -120,7 +120,8 @@ def test_fused_matches_jax(models, seed, page_hw, box, gray):
         raw_hws=[raw.shape[:2]], textline_projection=True)[0]
     got_r, got_p, got_tl = tm.predict_dual_tiled_resident_raw(
         tm, [tm.upload_raw(raw)], [box], [(th, tw)], morph=MORPH,
-        mask_class=1, post_morph=POST, raw_hws=[raw.shape[:2]])[0]
+        mask_class=1, post_morph=POST, return_device_textline=True,
+        raw_hws=[raw.shape[:2]], textline_projection=True)[0]
     assert 0 < want_r.sum() < want_r.size
     np.testing.assert_array_equal(got_r, want_r)
     np.testing.assert_array_equal(got_p, want_p)

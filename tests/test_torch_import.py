@@ -16,10 +16,16 @@ import pytest
 
 from sbb_textline_detection_tpu.core import config as jconfig
 from sbb_textline_detection_tpu.ops import contours as jcontours
+from sbb_textline_detection_tpu.ops import morphology as jmorphology
+from sbb_textline_detection_tpu.ops import rotate as jrotate
+from sbb_textline_detection_tpu.ops import tiling as jtiling
 from sbb_textline_detection_tpu.pagexml import writer as jwriter
 from sbb_textline_detection_tpu_torch.core import config as tconfig
 from sbb_textline_detection_tpu_torch.models import runner
 from sbb_textline_detection_tpu_torch.ops import contours as tcontours
+from sbb_textline_detection_tpu_torch.ops import morphology as tmorphology
+from sbb_textline_detection_tpu_torch.ops import rotate as trotate
+from sbb_textline_detection_tpu_torch.ops import tiling as ttiling
 from sbb_textline_detection_tpu_torch.pagexml import writer as twriter
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -92,9 +98,78 @@ def _mask():
     return m
 
 
-@pytest.mark.parametrize("what", ["config", "pagexml", "contours"])
-def test_copies_match_jax_package(what, tmp_path):
-    if what == "config":
+def _gray():
+    return np.random.default_rng(6).integers(0, 256, (40, 56)).astype(
+        np.uint8)
+
+
+def _check_tiling():
+    rng = np.random.default_rng(7)
+    for (h, w), (th, tw) in (((150, 170), (64, 64)), ((64, 64), (64, 64)),
+                             ((97, 210), (48, 80))):
+        got = ttiling.compute_grid(h, w, th, tw, 0.1)
+        want = jtiling.compute_grid(h, w, th, tw, 0.1)
+        for f in dataclasses.fields(want):
+            np.testing.assert_array_equal(getattr(got, f.name),
+                                          getattr(want, f.name))
+        img = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+        tiles = ttiling.extract_tiles(img, got)
+        np.testing.assert_array_equal(tiles,
+                                      jtiling.extract_tiles(img, want))
+        labels = tiles[..., 0] % 3
+        np.testing.assert_array_equal(ttiling.stitch_labels(labels, got),
+                                      jtiling.stitch_labels(labels, want))
+    with pytest.raises(ValueError, match="smaller than tile"):
+        ttiling.compute_grid(30, 100, 64, 64)
+
+
+def _check_morphology_host(monkeypatch):
+    """Binary masks (the native library, when built) and gray images (the
+    numpy windows), then the numpy windows on the masks too."""
+    seq = (("open", 5, 1), ("close", 5, 1), ("erode", 3, 2),
+           ("dilate", 5, 1))
+    for native in (True, False):
+        if not native:
+            for mod in (tmorphology, jmorphology):
+                monkeypatch.setattr(mod, "_binary_foreground_value",
+                                    lambda img: None)
+        for img in (_mask(), _mask() * np.uint8(255), _gray()):
+            for name in ("erode_host", "dilate_host"):
+                for k, it in ((5, 1), (5, 2), (3, 3)):
+                    np.testing.assert_array_equal(
+                        getattr(tmorphology, name)(img, k, it),
+                        getattr(jmorphology, name)(img, k, it))
+            for name in ("morph_open_host", "morph_close_host"):
+                np.testing.assert_array_equal(
+                    getattr(tmorphology, name)(img, 5),
+                    getattr(jmorphology, name)(img, 5))
+            got = tmorphology.morph_seq_host(img, seq)
+            np.testing.assert_array_equal(
+                got, jmorphology.morph_seq_host(img, seq))
+            assert got.dtype == img.dtype
+    with pytest.raises(ValueError, match="unknown morph op"):
+        tmorphology.morph_seq_host(_mask(), (("blur", 5, 1),))
+
+
+def _check_rotate_mask_host():
+    m = _mask() * np.uint8(255)
+    for angle in (0.0, 3.5, -17.0, 72.0):
+        got = trotate.rotate_mask_host(m, angle)
+        np.testing.assert_array_equal(got, jrotate.rotate_mask_host(m, angle))
+        assert got.dtype == np.uint8 and set(np.unique(got)) <= {0, 1}
+        assert got.any()
+
+
+@pytest.mark.parametrize("what", ["config", "pagexml", "contours", "tiling",
+                                  "morphology_host", "rotate_mask_host"])
+def test_copies_match_jax_package(what, tmp_path, monkeypatch):
+    if what == "tiling":
+        _check_tiling()
+    elif what == "morphology_host":
+        _check_morphology_host(monkeypatch)
+    elif what == "rotate_mask_host":
+        _check_rotate_mask_host()
+    elif what == "config":
         assert dataclasses.asdict(tconfig.DEFAULT_CONFIG) == \
             dataclasses.asdict(jconfig.DEFAULT_CONFIG)
     elif what == "pagexml":

@@ -1,6 +1,10 @@
 """The port's synthetic training streams and host rotation against the JAX
 package's: given the same rng they are bit-equal."""
 
+import os
+import shutil
+import subprocess
+
 import numpy as np
 import pytest
 
@@ -95,14 +99,45 @@ def test_page_pool_is_the_ports_own(monkeypatch):
     assert jsyn._PAGE_POOL is not pool
 
 
+@pytest.fixture(scope="module")
+def native_library(tmp_path_factory):
+    """The host library loaded by both bridges. A fresh checkout has no
+    build of it, and whether another test file's `make -C native` has
+    finished by now depends on how the files fall on the workers: so,
+    where it is missing, a private copy of native/ is built in a temporary
+    directory (nothing another worker may be writing is touched) and both
+    bridges load that."""
+    bridges = (native_bridge, jnative)
+    if all(b.available() for b in bridges):
+        return
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "native")
+    build = str(tmp_path_factory.mktemp("native_build") / "native")
+    shutil.copytree(src, build, ignore=shutil.ignore_patterns("*.o", "*.so"))
+    try:
+        subprocess.run(["make", "-C", build], check=True,
+                       capture_output=True, timeout=600)
+    except (OSError, subprocess.CalledProcessError):
+        pytest.skip("no C++ toolchain to build libsbbnative.so")
+    mp = pytest.MonkeyPatch()
+    mp.setenv("SBB_NATIVE_LIB", os.path.join(build, "libsbbnative.so"))
+    try:
+        for b in bridges:
+            if not b.available():
+                b._load_attempted = False
+        if not all(b.available() for b in bridges):
+            pytest.skip("libsbbnative.so failed to load")
+    finally:
+        mp.undo()
+
+
 @pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
 @pytest.mark.parametrize("order", [0, 1, 3])
-def test_rotate_image_host_equals_jax(monkeypatch, order, native):
+def test_rotate_image_host_equals_jax(monkeypatch, native_library, order,
+                                      native):
     """Both the native dispatch and the numpy path, 2-D and 3-D inputs.
     The port and the JAX package each load the library through their own
     bridge, so the numpy case turns off both."""
-    if native and not (native_bridge.available() and jnative.available()):
-        pytest.skip("the native host library is not built")
     if not native:
         for bridge in (native_bridge, jnative):
             monkeypatch.setattr(bridge, "available", lambda: False)
