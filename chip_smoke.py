@@ -461,7 +461,7 @@ def _watched_page(det, page):
         del det.device_phase
 
 
-def fallback_phase(dev, details, models, page):
+def fallback_phase(details, models, page):
     """The single-page fallback ladder on the full-width dual-head bundle
     and one A4 page: every rung and both deskew routes against the raw
     path with the resident chain. Returns the Radon launches of its
@@ -1184,7 +1184,7 @@ def main() -> int:
     unet_phase(dev, details)
     launches, det, pages = pipeline_phase(dev, details)
     profile_phase(det, pages[1], details)
-    launches += fallback_phase(dev, details, det.models, pages[1])
+    launches += fallback_phase(details, det.models, pages[1])
     del det
     launches += classic_phase(dev, details)
     train_parity_phase(dev, details)

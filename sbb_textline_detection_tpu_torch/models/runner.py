@@ -71,6 +71,15 @@ def _pad_white(img: np.ndarray, bottom: int, right: int, top: int = 0,
     return out
 
 
+def _binarized_plane(batch: torch.Tensor, tb: torch.Tensor):
+    """(channel 0 of a uint8 tile batch (n, mh, mw[, 3]), that plane
+    thresholded at the per-tile Otsu thresholds `tb` as float32 0.0 / 1.0):
+    the otsu_copy binarization (main.py:191-193)."""
+    plane = batch[..., 0] if batch.ndim == 4 else batch
+    return plane, (plane.to(torch.int32) > tb[:, None, None]).to(
+        torch.float32)
+
+
 class SegmentationModel:
     """One loaded TpuUnet or ResNet50Unet on a device."""
 
@@ -205,10 +214,7 @@ class SegmentationModel:
         main.py:191-193); else the tiles / 255 (main.py:490-503), a plane
         repeated to 3 channels."""
         if tb is not None:
-            plane = batch[..., 0] if batch.ndim == 4 else batch
-            ch0 = (plane.to(torch.int32) > tb[:, None, None]).to(
-                torch.float32)
-            x = ch0[:, None].expand(-1, 3, -1, -1)
+            x = _binarized_plane(batch, tb)[1][:, None].expand(-1, 3, -1, -1)
         else:
             x = batch.to(torch.float32) / 255.0
             x = x.permute(0, 3, 1, 2) if batch.ndim == 4 \
@@ -228,9 +234,7 @@ class SegmentationModel:
         sees the thresholded tiles and the textline model the tiles / 255
         (_forward_labels)."""
         if self._is_dual_head_pair(other):
-            plane = batch[..., 0] if batch.ndim == 4 else batch
-            ch0 = (plane.to(torch.int32) > tb[:, None, None]).to(
-                torch.float32)
+            plane, ch0 = _binarized_plane(batch, tb)
             h0 = int(self.spec.heads[0])
             rawf = plane.to(torch.float32) / 255.0
             with self._f32_guard():
