@@ -2,15 +2,19 @@
 
 `python -m sbb_textline_detection_tpu_torch.cli -i IMAGE -o OUT_DIR
 -m MODEL_DIR` mirrors the reference CLI (upstream main.py:2162-2171):
-`-i` may be a directory (pages run one after another with the models
-loaded once); `--synthetic-models` uses randomly initialized models (the
+`-i` may be a directory (its pages run as one pipelined batch,
+TextlineDetector.process_batch, with the models loaded once);
+`--synthetic-models` uses randomly initialized models (the
 page and dual-head TpuUnets); `-m` reads a directory of checkpoints
 through ModelBundle.from_dir: the page and dual-head `.npz` files of the
 JAX package's format, or the upstream three-model layout (page, region
 and textline) as `.npz` files or as the upstream Keras `.h5` files, which
 are converted on first load (needs h5py; see models/convert.py).
 `--device` (default `cuda`) picks the device; without a CUDA card the
-command stops unless `--device cpu` is given.
+command stops unless `--device cpu` is given. `--timings` prints each
+page's stage breakdown (seconds per stage, of which on the device, and the
+page's FLOPs); `--profile DIR` wraps the run in a torch.profiler trace
+(utils/profiling.trace) and writes it into DIR.
 """
 
 from __future__ import annotations
@@ -58,11 +62,16 @@ device_option = click.option(
                    "page, region and textline .npz or Keras .h5 files")
 @click.option("--synthetic-models", is_flag=True, default=False,
               help="use randomly initialized models (smoke runs)")
+@click.option("--profile", type=click.Path(file_okay=False), default=None,
+              help="write a torch.profiler trace to this directory")
+@click.option("--timings", is_flag=True, default=False,
+              help="print the per-stage timing breakdown per page")
 @device_option
-def main(image, out, model, synthetic_models, device):
+def main(image, out, model, synthetic_models, profile, timings, device):
     from sbb_textline_detection_tpu_torch.models.runner import ModelBundle
     from sbb_textline_detection_tpu_torch.pipeline.detector import (
         TextlineDetector, load_image)
+    from sbb_textline_detection_tpu_torch.utils import profiling
 
     if synthetic_models:
         models = ModelBundle.random_init(DEFAULT_CONFIG.runtime,
@@ -82,13 +91,20 @@ def main(image, out, model, synthetic_models, device):
                        if f.lower().endswith(exts))
     else:
         paths = [image]
-    t0 = time.time()
-    results = detector.process_batch((load_image(p), p) for p in paths)
-    for path, res in zip(paths, results):
-        f_name = os.path.splitext(os.path.basename(path))[0]
-        xml_path = res.write(out, f_name)
-        click.echo(f"{path} -> {xml_path}  ({time.time() - t0:.2f}s "
-                   f"elapsed{', DEGRADED' if res.degraded else ''})")
+    with profiling.trace(profile):
+        t0 = time.time()
+        results = detector.process_batch((load_image(p), p) for p in paths)
+        for path, res in zip(paths, results):
+            f_name = os.path.splitext(os.path.basename(path))[0]
+            xml_path = res.write(out, f_name)
+            click.echo(f"{path} -> {xml_path}  ({time.time() - t0:.2f}s "
+                       f"elapsed{', DEGRADED' if res.degraded else ''})")
+            if timings:
+                click.echo("  " + " ".join(
+                    f"{k}={v:.2f}s" for k, v in res.timings.items()))
+                click.echo("  device: " + " ".join(
+                    f"{k}={v:.3f}s" for k, v in res.device_timings.items())
+                    + f" flops={res.flops:.4g}")
 
 
 if __name__ == "__main__":

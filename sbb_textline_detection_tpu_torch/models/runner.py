@@ -1,10 +1,11 @@
-"""Inference engine for single pages (counterpart of
+"""Inference engine (counterpart of
 sbb_textline_detection_tpu/models/runner.py, limited to what
-TextlineDetector's single-page paths run).
+TextlineDetector's paths run).
 
   * `SegmentationModel.predict_small_prescaled` / `predict_whole_small`:
     the page model's whole-image forward at model resolution (label map
-    back to host);
+    back to host); `predict_smalls_prescaled_batch` /
+    `predict_whole_small_batch`: K pages in one forward;
   * the fused segmentation program, in three forms that differ only in
     how the working canvas reaches the device and share everything after
     it (`_dual_tiled`: whitening outside the page box, masked Otsu, tile
@@ -17,11 +18,14 @@ TextlineDetector's single-page paths run).
       - `upload_canvas` + `predict_dual_tiled_resident`: the host scales
         the page and uploads the whole working canvas;
       - `predict_dual_tiled`: the host crops the page box and uploads the
-        padded crop;
+        padded crop; `predict_dual_tiled_multi`: the same for K page
+        crops of one tile grid at once;
   * `predict_tiled`: the same tiling for one model alone (the separate
     per-model path).
 
-Float32 modules run inside `ops/precision.full_f32` (no TF32).
+Float32 modules run inside `ops/precision.full_f32` (no TF32). Every
+entry point is a `utils/stagetime.device_section`, and every forward adds
+its FLOPs to the calling thread's stage ledger.
 
 PyTorch runs eagerly, so there is no compile cache and no shape bucketing
 beyond the tile grid; the JAX package's 1-/2-bit transfer packing
@@ -31,7 +35,8 @@ beyond the tile grid; the JAX package's 1-/2-bit transfer packing
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +47,7 @@ from sbb_textline_detection_tpu_torch.models.registry import ModelSpec
 from sbb_textline_detection_tpu_torch.ops import morphology, precision
 from sbb_textline_detection_tpu_torch.ops import resize as resize_ops
 from sbb_textline_detection_tpu_torch.ops import threshold
+from sbb_textline_detection_tpu_torch.utils import stagetime
 
 # tuple of ("erode"|"dilate"|"open"|"close", kernel_size, iterations)
 MorphSpec = Tuple[Tuple[str, int, int], ...]
@@ -80,6 +86,18 @@ def _binarized_plane(batch: torch.Tensor, tb: torch.Tensor):
         torch.float32)
 
 
+def _device_entry(fn):
+    """A SegmentationModel entry point that puts work on the model's
+    device: it builds no autograd graph (torch.no_grad is thread-local, so
+    each entry point sets it for whichever thread calls it) and is one
+    stagetime.device_section. Entry points do not call each other."""
+    @functools.wraps(fn)
+    def entry(self, *args, **kwargs):
+        with torch.no_grad(), stagetime.device_section(self.device):
+            return fn(self, *args, **kwargs)
+    return entry
+
+
 class SegmentationModel:
     """One loaded TpuUnet or ResNet50Unet on a device."""
 
@@ -94,6 +112,8 @@ class SegmentationModel:
         # here, not as a degraded page later
         self.module.load_state_dict(state_dict)
         self.module.to(self.device).eval()
+        # FLOPs of one forward per sample, by input shape without the batch
+        self._flops_per_sample: Dict[tuple, float] = {}
 
     @property
     def input_hw(self) -> Tuple[int, int]:
@@ -106,17 +126,32 @@ class SegmentationModel:
         built with dtype float32, and every ResNet50Unet."""
         return getattr(self.module, "dtype", torch.float32) == torch.float32
 
-    def _f32_guard(self, *others: "SegmentationModel"):
-        """precision.full_f32() when this model or one of `others`
-        computes in float32 (the reference computes those in full float32,
-        and TF32 convolutions would not); else a null context, so the bf16
-        TpuUnet is left alone. See full_f32 on threads."""
-        if any(m.computes_f32 for m in (self,) + others):
-            return precision.full_f32()
-        return contextlib.nullcontext()
+    def _f32_guard(self):
+        """precision.full_f32() when this model computes in float32 (the
+        reference computes those in full float32, and TF32 convolutions
+        would not); else a null context, so the bf16 TpuUnet is left
+        alone."""
+        return precision.full_f32() if self.computes_f32 \
+            else contextlib.nullcontext()
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The module's forward on an NCHW batch, inside the TF32 guard.
+        Its FLOPs go to the calling thread's stage ledger: counted on the
+        first forward of each input shape (stagetime.count_flops), then
+        scaled by the batch."""
+        key = tuple(x.shape[1:])
+        per_sample = self._flops_per_sample.get(key)
+        with self._f32_guard():
+            if per_sample is None:
+                logits, flops = stagetime.count_flops(
+                    self.module.forward_nchw, x)
+                per_sample = self._flops_per_sample[key] = flops / x.shape[0]
+            else:
+                logits = self.module.forward_nchw(x)
+        stagetime.add(0.0, per_sample * x.shape[0])
+        return logits
 
     # -- page model --------------------------------------------------------
-    @torch.no_grad()
     def predict_small_prescaled(self, small_u8: np.ndarray) -> np.ndarray:
         """(model_h, model_w, 3) uint8 page-model input -> (model_h,
         model_w) uint8 label map on the host."""
@@ -124,11 +159,29 @@ class SegmentationModel:
         if small_u8.shape[:2] != (mh, mw):
             raise ValueError(f"expected {(mh, mw)} input, got "
                              f"{small_u8.shape[:2]}")
-        x = torch.from_numpy(np.ascontiguousarray(small_u8)).to(self.device)
-        x = x[None].to(torch.float32) / 255.0
-        with self._f32_guard():
-            logits = self.module.forward_nchw(x.permute(0, 3, 1, 2))
-        return torch.argmax(logits[0], dim=0).to(torch.uint8).cpu().numpy()
+        return self.predict_smalls_prescaled_batch(small_u8[None])[0]
+
+    @_device_entry
+    def predict_smalls_prescaled_batch(self, smalls_u8,
+                                       pad_to: Optional[int] = None
+                                       ) -> np.ndarray:
+        """K (model_h, model_w, 3) uint8 page-model inputs in ONE forward
+        and one fetch -> (K, model_h, model_w) uint8 label maps on the
+        host: the batched page-box stage of process_batch. `pad_to` is
+        accepted for the reference's callers and not used: the reference
+        pads a short window with white pages so that every window runs one
+        compiled program, and PyTorch compiles nothing per batch size, so
+        the port runs the K inputs it was given. The label maps equal K
+        single forwards up to argmax ties where cuDNN picks another
+        algorithm for another batch size."""
+        smalls = np.asarray(smalls_u8)
+        mh, mw = self.input_hw
+        if smalls.ndim != 4 or smalls.shape[1:] != (mh, mw, 3):
+            raise ValueError(f"expected (k, {mh}, {mw}, 3) input, got "
+                             f"{smalls.shape}")
+        x = self._to_device(smalls).to(torch.float32) / 255.0
+        logits = self._logits(x.permute(0, 3, 1, 2))
+        return torch.argmax(logits, dim=1).to(torch.uint8).cpu().numpy()
 
     def predict_whole_small(self, img_u8: np.ndarray) -> np.ndarray:
         """Whole-image forward without the final upscale: nearest-resize
@@ -137,6 +190,15 @@ class SegmentationModel:
         mh, mw = self.input_hw
         return self.predict_small_prescaled(
             resize_ops.resize_nearest_host(img_u8, mh, mw))
+
+    def predict_whole_small_batch(self, imgs_u8) -> np.ndarray:
+        """K pages' whole-image forwards in one: each is nearest-resized
+        to model size on the host; returns the (K, model_h, model_w)
+        label maps."""
+        mh, mw = self.input_hw
+        return self.predict_smalls_prescaled_batch(np.stack([
+            resize_ops.resize_nearest_host(np.asarray(im), mh, mw)
+            for im in imgs_u8]))
 
     # -- geometry ----------------------------------------------------------
     def _stride(self, margin_ratio: float) -> Tuple[int, int, int]:
@@ -168,6 +230,7 @@ class SegmentationModel:
         return (-(-ch // 128) * 128, -(-cw // 128) * 128)
 
     # -- uploads -------------------------------------------------------------
+    @_device_entry
     def upload_raw(self, image: np.ndarray) -> torch.Tensor:
         """Pad the ORIGINAL page to 128-multiples (white) and copy it to
         the device. `image` is (h, w, 3) RGB or one (h, w) plane: the
@@ -179,6 +242,7 @@ class SegmentationModel:
         ph, pw = -(-h // 128) * 128, -(-w // 128) * 128
         return self._to_device(_pad_white(image, ph - h, pw - w))
 
+    @_device_entry
     def upload_canvas(self, scaled_img: np.ndarray,
                       margin_ratio: float = 0.1) -> torch.Tensor:
         """Pad the working-resolution page into its white canvas on the
@@ -219,9 +283,7 @@ class SegmentationModel:
             x = batch.to(torch.float32) / 255.0
             x = x.permute(0, 3, 1, 2) if batch.ndim == 4 \
                 else x[:, None].expand(-1, 3, -1, -1)
-        with self._f32_guard():
-            logits = self.module.forward_nchw(x)
-        return torch.argmax(logits, 1).to(torch.uint8)
+        return torch.argmax(self._logits(x), 1).to(torch.uint8)
 
     def _forward_pair(self, other: "SegmentationModel", batch: torch.Tensor,
                       tb: torch.Tensor):
@@ -237,9 +299,7 @@ class SegmentationModel:
             plane, ch0 = _binarized_plane(batch, tb)
             h0 = int(self.spec.heads[0])
             rawf = plane.to(torch.float32) / 255.0
-            with self._f32_guard():
-                logits = self.module.forward_nchw(
-                    torch.stack([rawf, ch0], 1))
+            logits = self._logits(torch.stack([rawf, ch0], 1))
             return (torch.argmax(logits[:, :h0], 1).to(torch.uint8),
                     torch.argmax(logits[:, h0:], 1).to(torch.uint8))
         return self._forward_labels(batch, tb), other._forward_labels(batch)
@@ -332,7 +392,7 @@ class SegmentationModel:
             margin))
         return canvas, np.asarray([[0, 0, h, w]], np.int32), ny, nx
 
-    @torch.no_grad()
+    @_device_entry
     def predict_tiled(self, img_u8: np.ndarray, margin_ratio: float = 0.1,
                       morph: Optional[MorphSpec] = None,
                       pre_otsu: bool = False,
@@ -402,7 +462,7 @@ class SegmentationModel:
                 out.append((region, tl[:bh, :bw].cpu().numpy()))
         return out
 
-    @torch.no_grad()
+    @_device_entry
     def predict_dual_tiled(self, other: "SegmentationModel",
                            img_u8: np.ndarray, margin_ratio: float = 0.1,
                            morph: Optional[MorphSpec] = None,
@@ -424,7 +484,30 @@ class SegmentationModel:
                                 return_device_textline,
                                 textline_projection)[0]
 
-    @torch.no_grad()
+    @_device_entry
+    def predict_dual_tiled_multi(self, other: "SegmentationModel", imgs,
+                                 margin_ratio: float = 0.1,
+                                 morph: Optional[MorphSpec] = None,
+                                 mask_class: Optional[int] = None,
+                                 post_morph: Optional[MorphSpec] = None,
+                                 return_device_textline: bool = False,
+                                 textline_projection: bool = False):
+        """predict_dual_tiled for K page crops at once: each crop goes up
+        padded, and the K pages' tiles run as one batch in
+        `_balanced_chunk` chunks. Every page keeps its own Otsu threshold
+        and its own white border, so each result equals its
+        predict_dual_tiled (up to argmax ties where the other chunking
+        makes cuDNN pick another algorithm). All crops must map to ONE
+        tile grid (grid_for): a smaller page on a larger grid would see
+        its canvas border moved, and ValueError says so. Returns one tuple
+        per page, in input order."""
+        crops = [self._padded_crop(im, margin_ratio) for im in imgs]
+        return self._dual_tiled(other, [c[0] for c in crops],
+                                np.concatenate([c[1] for c in crops]),
+                                margin_ratio, morph, mask_class, post_morph,
+                                return_device_textline, textline_projection)
+
+    @_device_entry
     def predict_dual_tiled_resident(self, other: "SegmentationModel",
                                     canvases, boxes,
                                     margin_ratio: float = 0.1,
@@ -445,7 +528,7 @@ class SegmentationModel:
                                 mask_class, post_morph,
                                 return_device_textline, textline_projection)
 
-    @torch.no_grad()
+    @_device_entry
     def predict_dual_tiled_resident_raw(self, other: "SegmentationModel",
                                         raws, boxes, scaled_hws,
                                         margin_ratio: float = 0.1,

@@ -27,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 import torch
 
@@ -47,6 +48,9 @@ _PLAIN_CHUNK = 8
 
 _lib = None
 build_log = ""          # nvcc's report (-Xptxas -v) of this process's build
+# one build, one CDLL and an exact launch count when several threads reach
+# the kernel at once (the pipelined batch, a caller's own threads)
+_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -85,12 +89,15 @@ def build() -> str:
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        vp = ctypes.c_void_p
-        lib.radon_sweep_launch.argtypes = [vp, vp, vp, vp, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_int, vp]
-        lib.radon_sweep_launch.restype = ctypes.c_int
-        _lib = lib
+        with _lock:
+            if _lib is None:
+                lib = ctypes.CDLL(build())
+                vp = ctypes.c_void_p
+                lib.radon_sweep_launch.argtypes = [
+                    vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    vp]
+                lib.radon_sweep_launch.restype = ctypes.c_int
+                _lib = lib
     return _lib
 
 
@@ -167,7 +174,8 @@ def radon_pairs_cuda(canvases: torch.Tensor, cosv: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"radon_pairs kernel launch failed: CUDA error "
                            f"{err}")
-    launches += 1
+    with _lock:
+        launches += 1
     return out
 
 

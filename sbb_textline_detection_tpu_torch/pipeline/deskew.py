@@ -41,6 +41,7 @@ import torch
 from sbb_textline_detection_tpu_torch.core.config import DeskewConfig
 from sbb_textline_detection_tpu_torch.ops import (morphology, precision,
                                                  profiles, radon)
+from sbb_textline_detection_tpu_torch.utils import stagetime
 
 _BUCKETS = (256, 512, 1024, 1536, 2048)
 
@@ -150,6 +151,7 @@ def _hat_projection_rows(m: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
     with precision.full_f32():
         U = torch.bmm(torch.bmm(A, m), Bm.transpose(1, 2))
     n = m.shape[0]
+    stagetime.add(0.0, 2.0 * n * bufH * bufW * (bufH + bufW))
     L = bufH + bufW
     Wp = torch.nn.functional.pad(U, (0, L - bufW))
     flat = Wp.reshape(n, -1)[:, : bufH * (L - 1)].reshape(n, bufH, L - 1)
@@ -291,14 +293,16 @@ class DeskewEngine:
         scores. Returns the stacked [valid, score] tensor on the device;
         the fetch is deferred so that several groups queue before the
         first result is pulled back."""
-        canv = torch.from_numpy(np.ascontiguousarray(canvases, np.uint8)
-                                ).to(self.device)
-        ang = torch.from_numpy(np.asarray(angles, np.float32)).to(self.device)
-        P = radon.radon_pairs(canv, ang)
-        return _score_profiles_impl(
-            P, sigma=float(self.cfg.sigma),
-            multiplier=float(self.cfg.peak_threshold_multiplier),
-            pos_min=float(self.cfg.pos_peak_min_value))
+        with stagetime.device_section(self.device):
+            canv = torch.from_numpy(np.ascontiguousarray(canvases, np.uint8)
+                                    ).to(self.device)
+            ang = torch.from_numpy(np.asarray(angles, np.float32)).to(
+                self.device)
+            P = radon.radon_pairs(canv, ang)
+            return _score_profiles_impl(
+                P, sigma=float(self.cfg.sigma),
+                multiplier=float(self.cfg.peak_threshold_multiplier),
+                pos_min=float(self.cfg.pos_peak_min_value))
 
     def _sweep_collect(self, vs_dev: torch.Tensor, r: int,
                        angles: np.ndarray) -> List[Tuple[float, float]]:
@@ -307,7 +311,8 @@ class DeskewEngine:
         valid angles (the score rides along for the vertical re-sweep
         guard, DEVIATIONS #15)."""
         a = angles.shape[0]
-        vs = vs_dev.cpu().numpy()
+        with stagetime.device_section(vs_dev.device):
+            vs = vs_dev.cpu().numpy()
         valid = vs[0].reshape(r, a) != 0.0
         score = vs[1].reshape(r, a)
         out = []
@@ -426,6 +431,12 @@ class DeskewEngine:
         s = self._bucket_for_sizes([(b[3], b[2]) for b in boxes_xywh])
         angles = torch.from_numpy(np.concatenate(
             [self._coarse, self._vertical])).to(mask_dev.device)
+        with stagetime.device_section(mask_dev.device):
+            return self._resident_groups(mask_dev, boxes_xywh, s, angles)
+
+    def _resident_groups(self, mask_dev, boxes_xywh, s, angles):
+        """resident_dispatch's loop: one chain per group of regions."""
+        n = len(boxes_xywh)
         pending = []
         start = 0
         while start < n:
@@ -456,7 +467,8 @@ class DeskewEngine:
         slopes: List[float] = []
         profiles_out = []
         for out_dev, group, bufH in pending:
-            out = out_dev.cpu().numpy()
+            with stagetime.device_section(out_dev.device):
+                out = out_dev.cpu().numpy()
             for i, (x, y, w, h) in enumerate(group):
                 slopes.append(float(out[i, 0]))
                 profiles_out.append((out[i, 1:1 + h],

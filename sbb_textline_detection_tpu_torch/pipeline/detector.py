@@ -1,5 +1,6 @@
-"""Pipeline orchestrator for single pages (counterpart of
-sbb_textline_detection_tpu/pipeline/detector.py).
+"""Pipeline orchestrator (counterpart of
+sbb_textline_detection_tpu/pipeline/detector.py): single pages, and the
+pipelined batch.
 
 Per page, on the main path: the ORIGINAL page goes to the device once (one
 plane when its channels are byte-identical or the dual-head model serves
@@ -32,15 +33,37 @@ launches its kernel on a CUDA tensor or raises):
 Each rung that gave way is logged at WARNING and counted on the detector
 in `fallbacks`, keyed by rung; `degraded` counts the pages that lost their
 regions to a failure.
+
+process_batch pipelines the pages: the device phases of upcoming pages run
+on `runtime.device_phase_workers` threads while the calling thread does
+the host phase of the page before them; with `runtime.pages_per_dispatch`
+above 1 the pages of a group share one page-model forward and one tile
+batch (device_phase_group, on the standard path); else the page-model
+forwards of up to `runtime.page_box_batch` upcoming pages are folded into
+one on a prefetch thread (_page_box_prefetch). On a CUDA device each of
+those threads issues its work on a stream of its own and waits for it
+before it hands a page over, and the calling thread stays on the default
+stream: a page's deskew chain and the next page's segmentation then do
+not queue behind each other (_worker_stream, _adopt). Results come in
+input order, a page whose device phase fails before any page box exists
+comes out degraded in its place, and both counters are guarded by a lock.
+
+Every stage also reports its time on the device and its FLOPs
+(utils/stagetime): `PageResult.device_timings` and `PageResult.flops`.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import itertools
 import logging
 import os
+import queue
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -54,6 +77,7 @@ from sbb_textline_detection_tpu_torch.models.runner import ModelBundle
 from sbb_textline_detection_tpu_torch.pipeline import order as order_mod
 from sbb_textline_detection_tpu_torch.pipeline import stages
 from sbb_textline_detection_tpu_torch.pipeline.deskew import DeskewEngine
+from sbb_textline_detection_tpu_torch.utils import stagetime
 
 LOG = logging.getLogger("sbb_textline_detection_tpu_torch.detector")
 
@@ -66,11 +90,6 @@ _UNPORTED_FLAGS = {
     "spec_deskew": 'Queue 1 "Speculative deskew"',
     "device_page_box": 'Queue 1 "Headless and fused page box"',
     "fused_page_box": 'Queue 1 "Headless and fused page box"',
-    "pages_per_dispatch": 'Queue 1 "Pipelined process_batch and grouped '
-                          'pages"',
-    "device_phase_workers": 'Queue 1 "Pipelined process_batch and grouped '
-                            'pages"',
-    "page_box_batch": 'Queue 1 "Pipelined process_batch and grouped pages"',
     "deskew_buf_max": 'Queue 1 "Resident deskew buffer cap"',
 }
 
@@ -83,6 +102,12 @@ class PageResult:
     textlines: List[List[np.ndarray]]
     page_coord: List[int]
     timings: Dict[str, float]
+    # Seconds on the device per stage (a subset of `timings`' keys plus
+    # their sum as "total"; see utils/stagetime on what a section
+    # measures) and the FLOPs of the page's model forwards and deskew
+    # matmuls.
+    device_timings: Dict[str, float] = dataclasses.field(default_factory=dict)
+    flops: float = 0.0
     # True when a failure cost this page its regions
     degraded: bool = False
 
@@ -101,6 +126,8 @@ class _DeviceState:
     region_mask: Optional[np.ndarray]
     textline_mask: Optional[np.ndarray]
     timings: Dict[str, float]
+    device_timings: Dict[str, float]
+    flops: float
     # the fused program's textline canvas on the device, for the resident
     # deskew chain; None when resident_deskew is off or the separate
     # per-model rung produced the masks
@@ -159,6 +186,10 @@ def _split_fused(masks):
     return region, second, None, None
 
 
+class _ConsumerGone(Exception):
+    """The consumer of _page_box_prefetch stopped reading."""
+
+
 class TextlineDetector:
     """Process-lifetime detector: holds the model bundle and deskew engine."""
 
@@ -186,26 +217,50 @@ class TextlineDetector:
         self.degraded = 0
         # rungs of the fallback ladder that gave way, by rung
         self.fallbacks: collections.Counter = collections.Counter()
+        # both are written by the batch's worker threads too
+        self._count_lock = threading.Lock()
+        self._tls = threading.local()
 
     def _fell_back(self, rung: str) -> None:
-        self.fallbacks[rung] += 1
+        with self._count_lock:
+            self.fallbacks[rung] += 1
+
+    def _page_degraded(self) -> None:
+        with self._count_lock:
+            self.degraded += 1
 
     # -- device-bound phase --------------------------------------------------
-    def device_phase(self, image: np.ndarray,
-                     image_filename: str = "") -> _DeviceState:
+    def device_phase(self, image: np.ndarray, image_filename: str = "",
+                     pre_box=None) -> _DeviceState:
         """Scale, border-crop, and run all three model passes. Prefers the
         raw-upload path (original page up, working canvas gathered on the
-        device); any failure there falls back to the standard path."""
+        device); any failure there falls back to the standard path.
+        `pre_box`: optional (box, t_share, d_share, f_share) from the
+        batched page-box stage (_page_box_prefetch); the raw path then
+        skips its own page-model forward."""
         rt = self.config.runtime
         if rt.resident_upload and rt.raw_upload:
             try:
-                return self._device_phase_raw(image, image_filename)
+                return self._device_phase_raw(image, image_filename,
+                                              pre_box=pre_box)
             except Exception:
                 LOG.warning("raw-resident device phase failed for %s; "
                             "using the standard path", image_filename,
                             exc_info=True)
                 self._fell_back("standard_path")
         return self._device_phase_standard(image, image_filename)
+
+    def _device_phase_or_none(self, image: np.ndarray, image_filename: str,
+                              pre_box=None) -> Optional[_DeviceState]:
+        """device_phase, or None when it failed before any page box
+        existed (the page then comes out as _degraded_result)."""
+        try:
+            return self.device_phase(image, image_filename, pre_box=pre_box)
+        except Exception:
+            LOG.warning("device phase failed for %s before a page box "
+                        "existed; writing empty PAGE-XML", image_filename,
+                        exc_info=True)
+            return None
 
     def _fused_modes(self) -> Tuple[bool, bool]:
         """(keep the textline canvas on the device, fetch only its row
@@ -214,33 +269,45 @@ class TextlineDetector:
         keep_dev = bool(rt.resident_deskew)
         return keep_dev, keep_dev and bool(rt.textline_projection)
 
-    def _device_phase_raw(self, image: np.ndarray,
-                          image_filename: str = "") -> _DeviceState:
+    def _device_phase_raw(self, image: np.ndarray, image_filename: str = "",
+                          pre_box=None) -> _DeviceState:
         """Raw upload, page model + host border box, fused segmentation.
-        The working image is never made on the host (LazyScaledImage)."""
+        The working image is never made on the host (LazyScaledImage).
+        With `pre_box` the page-model forward and its fetch are skipped
+        and the window's shared cost is folded into page_extraction."""
         cfg = self.config
         t: Dict[str, float] = {}
+        dev: Dict[str, float] = {}
+        stagetime.reset()
         t0 = time.time()
         th, tw = stages.working_dims(image, cfg)
         scaled = stages.LazyScaledImage(image, th, tw)
         plane = self.models.is_dual_head or _channels_identical(image)
         raw_dev = self.models.region.upload_raw(
             image[:, :, 0] if plane and image.ndim == 3 else image)
-        mh, mw = self.models.page.input_hw
-        small = stages.page_model_input_from_raw(image, th, tw, mh, mw)
-        try:
-            small_labels = self.models.page.predict_small_prescaled(small)
-            box = stages._page_box_model_res(small_labels, th, tw, cfg)
-        except Exception:
-            # reference fallback: the whole image (main.py:406-426 shape
-            # quirk included)
-            LOG.warning("page-border detection failed for %s; using the "
-                        "whole page", image_filename, exc_info=True)
-            self._fell_back("whole_page_box")
-            box = [0, 0, tw - 1, th - 1]
+        t_share = d_share = f_share = 0.0
+        if pre_box is not None:
+            box, t_share, d_share, f_share = pre_box
+        else:
+            mh, mw = self.models.page.input_hw
+            small = stages.page_model_input_from_raw(image, th, tw, mh, mw)
+            try:
+                small_labels = self.models.page.predict_small_prescaled(small)
+                box = stages._page_box_model_res(small_labels, th, tw, cfg)
+            except Exception:
+                # reference fallback: the whole image (main.py:406-426
+                # shape quirk included)
+                LOG.warning("page-border detection failed for %s; using "
+                            "the whole page", image_filename, exc_info=True)
+                self._fell_back("whole_page_box")
+                box = [0, 0, tw - 1, th - 1]
         page_coord = [box[1], box[1] + box[3], box[0], box[0] + box[2]]
-        t["page_extraction"] = time.time() - t0
+        t["page_extraction"] = time.time() - t0 + t_share
+        d, flops = stagetime.snapshot()
+        dev["page_extraction"] = d + d_share
+        flops += f_share
 
+        stagetime.reset()
         t1 = time.time()
         keep_dev, tp = self._fused_modes()
         pbox = [page_coord[0], page_coord[2], box[3], box[2]]
@@ -253,10 +320,12 @@ class TextlineDetector:
         region_mask, textline_mask, textline_dev, textline_proj = \
             _split_fused(res[0])
         t["region_extraction_model"] = time.time() - t1
-        t["textlines"] = 0.0
+        dev["region_extraction"], f = stagetime.snapshot()
+        t["textlines"] = dev["textlines"] = 0.0
         return _DeviceState(image_filename, scaled, (box[3], box[2]),
                             page_coord, _page_quad(page_coord), region_mask,
-                            textline_mask, t, textline_dev, textline_proj)
+                            textline_mask, t, dev, flops + f, textline_dev,
+                            textline_proj)
 
     def _device_phase_standard(self, image: np.ndarray,
                                image_filename: str = "") -> _DeviceState:
@@ -267,6 +336,8 @@ class TextlineDetector:
         there leaves the page without regions."""
         cfg = self.config
         t: Dict[str, float] = {}
+        dev: Dict[str, float] = {}
+        stagetime.reset()
         t0 = time.time()
         scaled = stages.scale_image(image, cfg)
         canvas = None
@@ -282,10 +353,12 @@ class TextlineDetector:
         image_page, page_coord, cont_page = stages.extract_page(
             scaled, self.models, cfg, on_fallback=self._fell_back)
         t["page_extraction"] = time.time() - t0
+        dev["page_extraction"], flops = stagetime.snapshot()
 
         region_mask = textline_mask = textline_dev = textline_proj = None
         failed = False
         keep_dev, tp = self._fused_modes()
+        stagetime.reset()
         t1 = time.time()
         fused = None
         try:
@@ -307,10 +380,14 @@ class TextlineDetector:
             self._fell_back("separate_models")
             fused = None
         if fused is not None:
+            # one call covered both stages: its cost goes to
+            # region_extraction, so that the stage keys stay comparable
             region_mask, textline_mask, textline_dev, textline_proj = \
                 _split_fused(fused)
             t["region_extraction_model"] = time.time() - t1
-            t["textlines"] = 0.0
+            dev["region_extraction"], f = stagetime.snapshot()
+            flops += f
+            t["textlines"] = dev["textlines"] = 0.0
         else:
             try:
                 region_mask = stages.extract_text_regions(
@@ -320,7 +397,10 @@ class TextlineDetector:
                             "regions", image_filename, exc_info=True)
                 failed = True
             t["region_extraction_model"] = time.time() - t1
+            dev["region_extraction"], f = stagetime.snapshot()
+            flops += f
             if region_mask is not None:
+                stagetime.reset()
                 t2 = time.time()
                 try:
                     textline_mask = stages.textline_mask_total(
@@ -331,17 +411,133 @@ class TextlineDetector:
                                 exc_info=True)
                     failed = True
                 t["textlines"] = time.time() - t2
+                dev["textlines"], f = stagetime.snapshot()
+                flops += f
         return _DeviceState(image_filename, scaled, image_page.shape[:2],
                             page_coord, cont_page, region_mask,
-                            textline_mask, t, textline_dev, textline_proj,
-                            failed)
+                            textline_mask, t, dev, flops, textline_dev,
+                            textline_proj, failed)
+
+    def device_phase_group(self, items) -> List[Optional[_DeviceState]]:
+        """Device phase for a group of pages with the page-model forwards
+        of ALL pages folded into one and their segmentation tiles into one
+        batch (the standard path: extract_page_batch, then
+        predict_dual_tiled_resident on the pages' canvases or
+        predict_dual_tiled_multi on their crops). The group's times and
+        FLOPs are split evenly over its pages, so that the stage keys stay
+        comparable with the single-page path. A group whose shared work
+        fails is served page by page (device_phase), counted in
+        `fallbacks` as "per_page_dispatch".
+
+        Items are (image, name) or (image, name, pre_box) from the batched
+        page-box stage; pre_box is consumed only by the per-page path (a
+        group runs its own batched page extraction). One state per item,
+        in order; None for a page whose device phase failed before any
+        page box existed."""
+        items = [tuple(it) + (None,) * (3 - len(it)) for it in items]
+        if len(items) <= 1:
+            return [self._device_phase_or_none(img, name, pb)
+                    for img, name, pb in items]
+        items = [(img, name) for img, name, _ in items]
+        try:
+            return self._device_phase_grouped(items)
+        except Exception:
+            LOG.warning("grouped device phase failed for %s; falling back "
+                        "to per-page device phases",
+                        [name for _, name in items], exc_info=True)
+            self._fell_back("per_page_dispatch")
+            return [self._device_phase_or_none(img, name)
+                    for img, name in items]
+
+    def _device_phase_grouped(self, items) -> List[Optional[_DeviceState]]:
+        cfg = self.config
+        region = self.models.region
+        n = len(items)
+        stagetime.reset()
+        t0 = time.time()
+        scaleds = [stages.scale_image(img, cfg) for img, _ in items]
+        canvases: Optional[List] = None
+        if cfg.runtime.resident_upload:
+            try:
+                canvases = [region.upload_canvas(s.image,
+                                                 cfg.tiling.margin_ratio)
+                            for s in scaleds]
+            except Exception:
+                LOG.warning("canvas upload failed; using the upload-per-"
+                            "dispatch path", exc_info=True)
+                self._fell_back("crop_upload")
+        page_crops = stages.extract_page_batch(scaleds, self.models, cfg,
+                                               on_fallback=self._fell_back)
+        t_page = (time.time() - t0) / n
+        d_page, f_page = (v / n for v in stagetime.snapshot())
+
+        # Pages fuse only with pages on the SAME tile grid: a smaller page
+        # padded onto a larger group grid would see a moved canvas border
+        # in the fused morphology and drift from its single-page result.
+        # The resident form also needs canvases of one shape.
+        subgroups: Dict[tuple, List[int]] = {}
+        for i, (image_page, _, _) in enumerate(page_crops):
+            key = region.grid_for(image_page.shape[0], image_page.shape[1],
+                                  cfg.tiling.margin_ratio)
+            if canvases is not None:
+                key = key + tuple(canvases[i].shape)
+            subgroups.setdefault(key, []).append(i)
+
+        states: List[Optional[_DeviceState]] = [None] * n
+        keep_dev, tp = self._fused_modes()
+        for idxs in subgroups.values():
+            stagetime.reset()
+            t1 = time.time()
+            fused = None
+            try:
+                if canvases is not None:
+                    # page_coord = [y0, y1, x0, x1] in working coordinates
+                    boxes = [[page_crops[i][1][0], page_crops[i][1][2],
+                              page_crops[i][0].shape[0],
+                              page_crops[i][0].shape[1]] for i in idxs]
+                    fused = stages.extract_regions_and_textline_resident(
+                        [canvases[i] for i in idxs], boxes, self.models,
+                        cfg, return_device_textline=keep_dev,
+                        textline_projection=tp)
+                if fused is None:
+                    fused = stages.extract_regions_and_textline_multi(
+                        [page_crops[i][0] for i in idxs], self.models, cfg,
+                        return_device_textline=keep_dev,
+                        textline_projection=tp)
+            except Exception:
+                LOG.warning("multi-page fused segmentation failed for %s; "
+                            "falling back to per-page device phases",
+                            [items[i][1] for i in idxs], exc_info=True)
+                fused = None
+            if fused is None:
+                self._fell_back("per_page_dispatch")
+                for i in idxs:
+                    states[i] = self._device_phase_or_none(*items[i])
+                continue
+            t_share = (time.time() - t1) / len(idxs)
+            d_share, f_share = (v / len(idxs) for v in stagetime.snapshot())
+            for i, masks in zip(idxs, fused):
+                region_mask, textline_mask, textline_dev, textline_proj = \
+                    _split_fused(masks)
+                image_page, page_coord, cont_page = page_crops[i]
+                states[i] = _DeviceState(
+                    items[i][1], scaleds[i], image_page.shape[:2],
+                    page_coord, cont_page, region_mask, textline_mask,
+                    {"page_extraction": t_page,
+                     "region_extraction_model": t_share, "textlines": 0.0},
+                    {"page_extraction": d_page,
+                     "region_extraction": d_share, "textlines": 0.0},
+                    f_page + f_share, textline_dev, textline_proj)
+        return states
 
     # -- host-bound phase ------------------------------------------------------
     def host_phase_dispatch(self, st: _DeviceState) -> Optional[Dict]:
         """The host phase's device-enqueueing prefix: region contours and
-        the resident deskew dispatch. Returns an opaque dict for
-        host_phase, or None (host_phase then does everything itself,
-        also after any failure here)."""
+        the resident deskew dispatch. The pipelined batch runs this for
+        a group as soon as its device phase is done and BEFORE it submits
+        the next group, so that the chains are on the device before the
+        host turns to anything else. Returns an opaque dict for host_phase, or None (host_phase
+        then does everything itself, also after any failure here)."""
         if st.region_mask is None or st.textline_dev is None:
             return None
         try:
@@ -349,13 +545,17 @@ class TextlineDetector:
             contours, boxes = stages.region_contours_and_boxes(
                 st.region_mask, self.config)
             t_contours = time.time() - t1
+            stagetime.reset()
             t2 = time.time()
             handle = (stages.deskew_dispatch_resident(boxes, self.deskew,
                                                       st.textline_dev)
                       if contours else None)
+            # the chain is only enqueued here: its ledger is read in
+            # host_phase, after the collect
             return {"contours": contours, "boxes": boxes,
                     "t_contours": t_contours, "handle": handle,
-                    "t_dispatch": time.time() - t2}
+                    "t_dispatch": time.time() - t2,
+                    "ledger": stagetime.detach()}
         except Exception:
             LOG.warning("host-phase dispatch failed for %s; host_phase "
                         "will redo it", st.image_filename, exc_info=True)
@@ -368,6 +568,8 @@ class TextlineDetector:
         page box of the device phase and writes empty regions."""
         cfg = self.config
         t = dict(st.timings)
+        dev = dict(st.device_timings)
+        flops = st.flops
         t0_all = time.time()
         contours: List[np.ndarray] = []
         boxes: List[List[int]] = []
@@ -401,6 +603,7 @@ class TextlineDetector:
                 contours, boxes = [], []  # degrade: no line mask, no regions
                 degraded = True
             if contours:
+                stagetime.reset()
                 t3 = time.time()
                 slopes, textlines = stages.slopes_and_lines(
                     contours, boxes, st.textline_mask, cfg, self.deskew,
@@ -412,8 +615,13 @@ class TextlineDetector:
                 # deskew: the sweeps or the chain with their wait for the
                 # device; line_split: the host's per-region line extraction
                 t["deskew"] = time.time() - t3 - t.get("line_split", 0.0)
+                dev["deskew"], f = stagetime.snapshot()
+                flops += f
                 if pre is not None:
                     t["deskew"] += pre["t_dispatch"]
+                    d, f = pre["ledger"].resolve()
+                    dev["deskew"] += d
+                    flops += f
 
                 t4 = time.time()
                 if st.textline_proj is not None:
@@ -440,7 +648,7 @@ class TextlineDetector:
             order_of_texts = id_of_texts = None
             degraded = True
         if degraded:
-            self.degraded += 1
+            self._page_degraded()
         tree = self._xml(st.image_filename, st.scaled, st.cont_page,
                          st.page_coord, contours, order_of_texts,
                          id_of_texts, textlines, all_box_coord)
@@ -451,8 +659,9 @@ class TextlineDetector:
             # total
             t["total"] += pre["t_contours"] + pre["t_dispatch"]
         t.pop("region_extraction_model", None)
+        dev["total"] = sum(dev.values())
         return PageResult(tree, contours, slopes, textlines, st.page_coord,
-                          t, degraded)
+                          t, dev, flops, degraded)
 
     def _xml(self, image_filename, scaled, cont_page, page_coord, contours,
              order_of_texts, id_of_texts, textlines, all_box_coord):
@@ -469,7 +678,7 @@ class TextlineDetector:
                          image_filename: str) -> PageResult:
         """Empty PAGE-XML over the whole page (main.py:2152-2156), for a
         page that failed before any page box existed."""
-        self.degraded += 1
+        self._page_degraded()
         th, tw = stages.working_dims(image, self.config)
         scaled = stages.LazyScaledImage(image, th, tw)
         page_coord = [0, th - 1, 0, tw - 1]
@@ -477,24 +686,249 @@ class TextlineDetector:
                          page_coord, [], None, None, [], [])
         return PageResult(tree, [], [], [], page_coord, {}, degraded=True)
 
+    # -- the batch's threads ---------------------------------------------------
+    def _effective_group_size(self) -> int:
+        """Pages per device_phase_group: runtime.pages_per_dispatch (the
+        reference raises it to a mesh's data axis under mesh_auto_group;
+        the port has no mesh)."""
+        return max(1, self.config.runtime.pages_per_dispatch)
+
+    def _page_box_batch_size(self) -> int:
+        """Window size of the batched page-box stage, or 0 when the path
+        in use cannot consume a ready box (only the raw path does)."""
+        rt = self.config.runtime
+        n = max(0, rt.page_box_batch)
+        if n <= 1 or not (rt.resident_upload and rt.raw_upload):
+            return 0
+        return n
+
+    @contextlib.contextmanager
+    def _worker_stream(self):
+        """On a CUDA device: run the block's device work on a stream that
+        belongs to the calling thread, and wait for it at the end, so
+        that whatever the block hands to another thread is complete. A
+        worker's segmentation then does not queue in front of the deskew
+        chain that the main thread issues on the default stream."""
+        device = self.models.region.device
+        if device.type != "cuda":
+            yield
+            return
+        stream = getattr(self._tls, "stream", None)
+        if stream is None:
+            stream = self._tls.stream = torch.cuda.Stream(device)
+        with torch.cuda.stream(stream):
+            try:
+                yield
+            finally:
+                stream.synchronize()
+
+    def _adopt(self, states) -> None:
+        """Tell the caching allocator that the calling thread's stream
+        now reads the device tensors that a worker's stream allocated:
+        their memory is then not handed out again, once they are freed,
+        before this stream's reads have run."""
+        for st in states:
+            dev = None if st is None else st.textline_dev
+            if dev is not None and dev.is_cuda:
+                dev.record_stream(torch.cuda.current_stream(dev.device))
+
+    def _page_box_prefetch(self, images, batch: int):
+        """Batched page-box stage: pulls up to `batch` upcoming pages,
+        gathers each page-model input on the host
+        (stages.page_model_input_from_raw), runs ONE forward and one fetch
+        for the window, decides each page's border box
+        (stages._page_box_model_res), and yields (image, name, pre_box)
+        triples. It runs on a thread of its own behind a bounded queue, so
+        that a window's forward overlaps the consumers' device phases. A
+        window whose forward fails yields its pages box-less (they run
+        their own page-model forward), counted as "page_box_batch"; if
+        the thread dies for any other reason, the window's remaining
+        pages and all later ones still come through box-less: no page is
+        dropped. When the consumer stops reading, the thread stops
+        pulling pages."""
+        q: "queue.Queue" = queue.Queue(maxsize=batch + 2)
+        end = object()
+        stop = threading.Event()
+
+        def put(item):
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return
+                except queue.Full:
+                    pass
+            raise _ConsumerGone()
+
+        def window_boxes(window):
+            mh, mw = self.models.page.input_hw
+            dims, smalls = [], []
+            for img, _ in window:
+                th, tw = stages.working_dims(img, self.config)
+                dims.append((th, tw))
+                smalls.append(stages.page_model_input_from_raw(
+                    img, th, tw, mh, mw))
+            with self._worker_stream():
+                labels = self.models.page.predict_smalls_prescaled_batch(
+                    np.stack(smalls), pad_to=batch)
+            boxes = []
+            for (th, tw), lab in zip(dims, labels):
+                try:
+                    boxes.append(stages._page_box_model_res(
+                        lab, th, tw, self.config))
+                except Exception:
+                    # reference fallback: the whole image (main.py:406-426
+                    # shape quirk included)
+                    LOG.warning("page-border detection failed; using the "
+                                "whole page", exc_info=True)
+                    self._fell_back("whole_page_box")
+                    boxes.append([0, 0, tw - 1, th - 1])
+            return boxes
+
+        def worker():
+            it = None
+            window: List = []
+            put_count = 0
+            try:
+                it = iter(images)
+                while True:
+                    window = list(itertools.islice(it, batch))
+                    put_count = 0
+                    if not window:
+                        break
+                    stagetime.reset()
+                    t0 = time.time()
+                    pre_boxes = None
+                    try:
+                        pre_boxes = window_boxes(window)
+                    except Exception:
+                        LOG.warning("batched page-box stage failed; pages "
+                                    "fall back to per-page forwards",
+                                    exc_info=True)
+                        self._fell_back("page_box_batch")
+                    d, f = stagetime.snapshot()
+                    n = len(window)
+                    share = ((time.time() - t0) / n, d / n, f / n)
+                    for i, (img, name) in enumerate(window):
+                        put((img, name, (pre_boxes[i],) + share
+                             if pre_boxes is not None else None))
+                        put_count = i + 1
+            except _ConsumerGone:
+                return
+            except BaseException:
+                LOG.warning("page-box prefetch thread died; yielding the "
+                            "current window and remaining pages box-less",
+                            exc_info=True)
+                self._fell_back("page_box_batch")
+                try:
+                    for img, name in window[put_count:]:
+                        put((img, name, None))
+                    for img, name in (it or ()):
+                        put((img, name, None))
+                except _ConsumerGone:
+                    return
+                except BaseException:
+                    LOG.warning("page iterator itself failed while "
+                                "draining; pages it never produced cannot "
+                                "be recovered", exc_info=True)
+            finally:
+                with contextlib.suppress(_ConsumerGone):
+                    put(end)
+
+        threading.Thread(target=worker, daemon=True,
+                         name="page-box-prefetch").start()
+        try:
+            while True:
+                item = q.get()
+                if item is end:
+                    return
+                yield item
+        finally:
+            stop.set()
+
     # -- public API --------------------------------------------------------
     def process_image(self, image: np.ndarray,
                       image_filename: str = "") -> PageResult:
         """Run the full cascade on an RGB uint8 page image."""
-        try:
-            st = self.device_phase(image, image_filename)
-        except Exception:
-            LOG.warning("device phase failed for %s before a page box "
-                        "existed; writing empty PAGE-XML", image_filename,
-                        exc_info=True)
+        st = self._device_phase_or_none(image, image_filename)
+        if st is None:
             return self._degraded_result(image, image_filename)
         return self.host_phase(st, self.host_phase_dispatch(st))
 
-    def process_batch(self, images: Iterable[Tuple[np.ndarray, str]]
-                      ) -> Iterator[PageResult]:
-        """Pages one after another, in input order."""
-        for image, name in images:
-            yield self.process_image(image, name)
+    def process_batch(self, images: Iterable[Tuple[np.ndarray, str]],
+                      prefetch: int = 1) -> Iterator[PageResult]:
+        """Pipelined batch, results in input order: the device phases of
+        upcoming pages run on runtime.device_phase_workers threads (at
+        least `prefetch` groups ahead) while this thread does the host
+        phase of the page before them. Pages are grouped
+        runtime.pages_per_dispatch at a time (device_phase_group). With
+        one page per group, the page-model forwards of up to
+        runtime.page_box_batch upcoming pages are folded into one on a
+        prefetch thread (_page_box_prefetch).
+
+        A page whose device phase fails before any page box exists comes
+        out as an empty whole-page PAGE-XML in its place, and the batch
+        goes on. A consumer that stops early leaves no thread running:
+        queued groups are cancelled and running ones are waited for."""
+        group_size = self._effective_group_size()
+        workers = max(1, self.config.runtime.device_phase_workers)
+        source = images
+        if group_size == 1:
+            boxbatch = self._page_box_batch_size()
+            if boxbatch:
+                source = self._page_box_prefetch(images, boxbatch)
+
+        def grouped():
+            it = iter(source)
+            while True:
+                group = list(itertools.islice(it, group_size))
+                if not group:
+                    return
+                yield group
+
+        def run_group(items):
+            with self._worker_stream():
+                return self.device_phase_group(items)
+
+        groups = grouped()
+        pending: collections.deque = collections.deque()
+        pool = ThreadPoolExecutor(max_workers=workers,
+                                  thread_name_prefix="device-phase")
+
+        def submit():
+            items = next(groups, None)
+            if items is not None:
+                pending.append((items, pool.submit(run_group, items)))
+
+        try:
+            for _ in range(max(workers, prefetch)):
+                submit()
+            while pending:
+                items, fut = pending.popleft()
+                try:
+                    states = fut.result()
+                except Exception:
+                    LOG.warning("device phase failed for %s; writing empty "
+                                "PAGE-XML", [it[1] for it in items],
+                                exc_info=True)
+                    states = [None] * len(items)
+                self._adopt(states)
+                # This group's deskew chains go to the device before the
+                # next group's segmentation is submitted: a chain issued
+                # later would have the host phase wait behind all of it.
+                pres = [None if st is None else self.host_phase_dispatch(st)
+                        for st in states]
+                submit()
+                for item, st, pre in zip(items, states, pres):
+                    if st is None:
+                        yield self._degraded_result(item[0], item[1])
+                    else:
+                        yield self.host_phase(st, pre)
+        finally:
+            for _, fut in pending:
+                fut.cancel()
+            pool.shutdown(wait=True)
+            if source is not images:
+                source.close()
 
     def run_file(self, image_path: str, dir_out: str,
                  f_name: Optional[str] = None) -> str:
@@ -507,7 +941,8 @@ class TextlineDetector:
 
     def run_files(self, image_paths: Iterable[str], dir_out: str
                   ) -> Iterator[str]:
-        """Directory mode: yields output XML paths in input order."""
+        """Pipelined directory mode: yields output XML paths in input
+        order."""
         paths = list(image_paths)
         for path, result in zip(paths, self.process_batch(
                 (load_image(p), p) for p in paths)):

@@ -1,5 +1,6 @@
-"""Pipeline stages of the single-page paths (counterpart of the parts of
-sbb_textline_detection_tpu/pipeline/stages.py that they run). Stages raise
+"""Pipeline stages (counterpart of the parts of
+sbb_textline_detection_tpu/pipeline/stages.py that the port's paths run),
+for one page and for a group of pages. Stages raise
 freely; degrade-don't-crash is handled by the detector.
 
 The JAX package's stages probe duck-typed models for what they can do;
@@ -133,6 +134,39 @@ def extract_page(scaled: ScaledImage, models: ModelBundle,
     return _crop_to_box(img, box)
 
 
+def extract_page_batch(scaleds: List[ScaledImage], models: ModelBundle,
+                       cfg: PipelineConfig, on_fallback=None
+                       ) -> List[Tuple[np.ndarray, List[int], np.ndarray]]:
+    """extract_page for a GROUP of pages with the K page-model forwards
+    folded into one (runner.predict_whole_small_batch). Per page the
+    result is extract_page's: the same box decision at model resolution,
+    and a page whose box decision fails gets the whole image. A failed
+    batched forward is told to `on_fallback` ("page_box_batch") and the
+    pages run extract_page one by one."""
+    try:
+        smalls = models.page.predict_whole_small_batch(
+            [s.image for s in scaleds])
+    except Exception:
+        logger.warning("batched page extraction failed; falling back to "
+                       "per-page forwards", exc_info=True)
+        if on_fallback is not None:
+            on_fallback("page_box_batch")
+        return [extract_page(s, models, cfg, on_fallback) for s in scaleds]
+    out = []
+    for s, small in zip(scaleds, smalls):
+        h, w = s.image.shape[:2]
+        try:
+            box = _page_box_model_res(small, h, w, cfg)
+        except Exception:
+            logger.warning("page-border detection failed; using the whole "
+                           "page", exc_info=True)
+            if on_fallback is not None:
+                on_fallback("whole_page_box")
+            box = [0, 0, w - 1, h - 1]
+        out.append(_crop_to_box(s.image, box))
+    return out
+
+
 def _crop_to_box(img: np.ndarray, box: List[int]
                  ) -> Tuple[np.ndarray, List[int], np.ndarray]:
     """Crop + page_coord + cont_page from a page box (main.py:405-437)."""
@@ -186,6 +220,25 @@ def extract_regions_and_textline(image_page: np.ndarray, models: ModelBundle,
         return None
     return models.region.predict_dual_tiled(
         models.textline, image_page.astype(np.uint8),
+        cfg.tiling.margin_ratio,
+        return_device_textline=return_device_textline,
+        textline_projection=(return_device_textline
+                             and textline_projection),
+        **_region_shaping(cfg))
+
+
+def extract_regions_and_textline_multi(image_pages, models: ModelBundle,
+                                       cfg: PipelineConfig,
+                                       return_device_textline: bool = False,
+                                       textline_projection: bool = False):
+    """Fused segmentation of K page crops of one tile grid, uploaded
+    padded, as one tile batch (runner.predict_dual_tiled_multi). Returns
+    one tuple per page as extract_regions_and_textline, in input order,
+    or None when the bundle cannot fuse."""
+    if not _can_fuse(models):
+        return None
+    return models.region.predict_dual_tiled_multi(
+        models.textline, [np.asarray(p, np.uint8) for p in image_pages],
         cfg.tiling.margin_ratio,
         return_device_textline=return_device_textline,
         textline_projection=(return_device_textline

@@ -141,9 +141,7 @@ def _with_runtime(**flags):
 
 @pytest.mark.parametrize("flag,value", [
     ("spec_deskew", True), ("device_page_box", True),
-    ("fused_page_box", True), ("pages_per_dispatch", 4),
-    ("device_phase_workers", 1), ("page_box_batch", 0),
-    ("deskew_buf_max", 2048)])
+    ("fused_page_box", True), ("deskew_buf_max", 2048)])
 def test_unported_flags_raise(bundles, flag, value):
     _, tb = bundles
     assert flag in detector._UNPORTED_FLAGS
@@ -161,7 +159,8 @@ def test_every_runtime_flag_is_read_raised_or_listed(bundles):
     read = {"batch_buckets", "tile_chunk", "grid_bucket", "grid_bucket_x",
             "compute_dtype", "deskew_batch", "deskew_canvas",
             "exact_point_in_polygon", "resident_deskew",
-            "textline_projection", "raw_upload", "resident_upload"}
+            "textline_projection", "raw_upload", "resident_upload",
+            "pages_per_dispatch", "device_phase_workers", "page_box_batch"}
     without_effect = {"warm_fallback_programs", "mesh_auto_group",
                       "deskew_spec_slots"}
     fields = {f.name for f in dataclasses.fields(RuntimeConfig)}
