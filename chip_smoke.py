@@ -49,7 +49,26 @@ Phases (any failure raises and the script exits non-zero):
      host_sweep fallback counted), and textline_projection off (the same
      PAGE-XML, reading order included); no page may degrade, and no other
      phase may have counted a fallback;
-  6. training, on the dual-head model at full width (DUALHEAD_SPEC: widths
+  6. the pipelined batch on the same bundle (batch_phase): the Radon
+     kernel against its plain version once more while a second thread
+     runs segmentation forwards on a stream of its own, as the batch's
+     workers do; then 8 A4 pages (skews 0, 8, -15 and repeats, one page
+     2900 px high so that two tile grids occur) served (a) by
+     process_image one after another, (b) by process_batch with one
+     worker and no page-box window, (c) under DEFAULT_CONFIG (2 workers,
+     windows of 8), also with every thread on the default stream and with
+     3 workers, and (d) with pages_per_dispatch=4; each after one warm-up
+     page. Printed: pages per second, Radon launches, each page's
+     device_timings, FLOPs and the FLOP/s they imply, and the card's idle
+     share for (a) and (c) on the first 4 pages under torch.profiler. It
+     fails if (b) or (c) differ from (a) in a PAGE-XML or a slope, other
+     than through a page box that the batched page forward moved by at
+     most one model-resolution pixel a side (printed); if (d) differs
+     from (a) in more than BATCH_MASK_LIMIT of a page's region-mask
+     pixels or in its region count; if a page degrades, a fallback is
+     counted or results come out of order. A slower batch is written
+     down, not failed;
+  7. training, on the dual-head model at full width (DUALHEAD_SPEC: widths
      (32, 64, 128, 256), 448x448, 2 input channels, heads (3, 2)):
      (a) one float32 AdamW step (TF32 off) from the same random_init
      weights on one seeded dualhead_batch of 2, on the card and on the
@@ -63,7 +82,9 @@ Phases (any failure raises and the script exits non-zero):
      ModelBundle.from_dir, and serve one A4 page, which must not degrade.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. The kernel line's launches add up phases
-4 and 5. With --details PATH, the run's details
+4, 5 and 6 (a)-(d). With --only batch, phases 4 (classic bundle), 5 and 7
+are left out (a shorter run while working on the batch; the default runs
+everything). With --details PATH, the run's details
 (ptxas report, per-page stage timings, kernel times) are written there as
 JSON. After the timed pages, the second page runs once more under
 torch.profiler for its device time by op and the Radon kernel's device
@@ -122,6 +143,20 @@ CLASSIC_REGION_SHARES = (0.5, 0.7, 0.85, 0.95)
 # and a near-tie may go to the neighbouring angle)
 LADDER_MASK_LIMIT = 1e-3
 SWEEP_SLOPE_LIMIT = 50.0 / 79.0 + 1e-6
+
+# batch_phase: (height, skew) of its 8 A4-wide pages (the sixth is shorter,
+# so that its crop lands on another tile grid than the others'); the
+# largest share of a page's region-mask pixels by which the grouped
+# dispatch (other tile chunks, so cuDNN may pick other algorithms and a
+# bf16 argmax tie may flip) may differ from process_image; the pages that
+# the profiled runs serve; the H100's dense bf16 peak (NVIDIA's data
+# sheet, SXM part at 700 W), against which the FLOP/s of the bf16 bundle
+# are stated
+BATCH_PAGES = ((3508, 0.0), (3508, 8.0), (3508, -15.0), (3508, 0.0),
+               (3508, 8.0), (2900, -15.0), (3508, 0.0), (3508, 8.0))
+BATCH_MASK_LIMIT = 1e-3
+BATCH_PROFILED_PAGES = 4
+BF16_OPS_S = 989e12
 
 
 def build_native(details):
@@ -445,8 +480,8 @@ def _watched_page(det, page):
     states = []
     real = det.device_phase
 
-    def device_phase(image, name=""):
-        states.append(real(image, name))
+    def device_phase(image, name="", pre_box=None):
+        states.append(real(image, name, pre_box=pre_box))
         return states[-1]
 
     det.device_phase = device_phase
@@ -623,6 +658,322 @@ def profile_phase(det, page, details):
           f"{radon.launches - before} launches on this page", flush=True)
     if radon_ms <= 0:
         raise RuntimeError("the profile shows no Radon kernel time")
+
+
+def _device_busy(fn):
+    """torch.profiler (device activities only) over fn(): its wall, the
+    summed time of its device kernels and copies, and the time in which at
+    least one of them ran (streams overlap, so the sum may exceed it)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        raise RuntimeError("torch.profiler recorded no device kernels")
+    total = sum(end - start for start, end in spans) / 1e6
+    busy, (lo, hi) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy += hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    busy = (busy + hi - lo) / 1e6
+    return {"wall_s": wall, "device_sum_s": total, "device_busy_s": busy,
+            "idle_share": 1.0 - busy / wall, "device_events": len(spans)}
+
+
+def radon_busy_phase(det, page, details):
+    """The Radon kernel beside a busy second thread: while a thread runs
+    the page's fused segmentation again and again on a stream of its own
+    (what a device-phase worker of the batch does), the kernel is held
+    against its plain version at the chain's first shape and timed."""
+    import threading
+
+    import torch
+
+    from sbb_textline_detection_tpu_torch.ops import radon, radon_bench
+
+    dev = det.models.region.device
+    angles = torch.from_numpy(radon_bench.sweep_angles()).to(dev)
+    cosv, sinv = radon.angle_cos_sin(angles)
+    r, s = radon_bench.SHAPES[0]
+    canv = torch.from_numpy(radon_bench.noise(SEED, r, s)).to(dev)
+    quiet_ms = radon_bench.cuda_time(lambda: radon.radon_pairs(canv, angles),
+                                     50)
+    stop, passes, errors = threading.Event(), [], []
+
+    def busy():
+        try:
+            with det._worker_stream():
+                while not stop.is_set():
+                    det._device_phase_raw(*page)
+                    passes.append(1)
+        except Exception as exc:    # shown by the main thread below
+            errors.append(exc)
+
+    th = threading.Thread(target=busy, name="busy-segmentation")
+    th.start()
+    try:
+        while not passes and not errors:
+            time.sleep(0.01)
+        before = len(passes)
+        got = radon.radon_pairs(canv, angles)
+        want = radon.radon_pairs_plain(canv, cosv, sinv)
+        torch.cuda.synchronize()
+        busy_ms = radon_bench.cuda_time(
+            lambda: radon.radon_pairs(canv, angles), 50)
+        during = len(passes) - before
+    finally:
+        stop.set()
+        th.join(120)
+    if errors or th.is_alive():
+        raise RuntimeError(f"the busy thread failed: {errors}")
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-2)
+    bound_ms, bound_by = _radon_bound(canv, int(angles.shape[0]))
+    row = {"regions": r, "s": s, "pairs": r * int(angles.shape[0]),
+           "canvas": "noise, beside a thread running segmentation",
+           "max_abs_err": err, "ms": busy_ms, "quiet_ms": quiet_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "segmentation_passes_meanwhile": during}
+    details["radon_beside_busy_thread"] = row
+    print(f"radon kernel beside a busy thread ({during} segmentation passes "
+          f"of {page[1]} meanwhile), {row['pairs']} pairs at S={s}: "
+          f"{busy_ms:.4f} ms against {quiet_ms:.4f} ms alone, bound "
+          f"{bound_ms:.3g} ms by {bound_by}, max |err| {err:.3g} (rtol "
+          f"1e-4, atol 1e-2)", flush=True)
+    if during < 1:
+        raise AssertionError("no segmentation pass ran beside the kernel")
+
+
+def _batch_pages():
+    import numpy as np
+
+    from sbb_textline_detection_tpu_torch.utils import synthetic
+
+    pages = []
+    for i, (height, skew) in enumerate(BATCH_PAGES):
+        img, _ = synthetic.make_page(np.random.default_rng(SEED + 20 + i),
+                                     height, 2480, skew_deg=skew)
+        pages.append((img, f"batch{i}_h{height}_skew{skew:+.0f}.png"))
+    return pages
+
+
+def _box_moved(a, b, model_px):
+    """Per side of two page boxes [y0, y1, x0, x1], the move in
+    model-resolution pixels (`model_px`: working pixels per model pixel
+    down and across)."""
+    return [abs(p - q) / model_px[i // 2] for i, (p, q) in
+            enumerate(zip(a, b))]
+
+
+def _mask_diff_share(mask, coord, ref_mask, ref_coord):
+    """Share of differing region-mask pixels over the two page boxes'
+    common part, in working coordinates."""
+    import numpy as np
+
+    y0, x0 = max(coord[0], ref_coord[0]), max(coord[2], ref_coord[2])
+    y1, x1 = min(coord[1], ref_coord[1]), min(coord[3], ref_coord[3])
+    a = mask[y0 - coord[0]:y1 - coord[0], x0 - coord[2]:x1 - coord[2]]
+    b = ref_mask[y0 - ref_coord[0]:y1 - ref_coord[0],
+                 x0 - ref_coord[2]:x1 - ref_coord[2]]
+    if a.shape != b.shape or a.size == 0:
+        return 1.0
+    return float(np.mean(a != b))
+
+
+def batch_phase(details, models):
+    """The pipelined batch against sequential process_image on 8 A4 pages
+    (see the module docstring, phase 6). Returns the Radon launches of its
+    runs (a)-(d)."""
+    import contextlib
+    import dataclasses
+
+    import torch
+
+    from sbb_textline_detection_tpu_torch.ops import radon
+    from sbb_textline_detection_tpu_torch.pipeline import stages
+    from sbb_textline_detection_tpu_torch.pipeline.detector import (
+        DEFAULT_CONFIG, TextlineDetector)
+
+    cfg = DEFAULT_CONFIG
+    pages = _batch_pages()
+    names = [name for _, name in pages]
+
+    def detector(**flags):
+        return TextlineDetector(models, dataclasses.replace(
+            cfg, runtime=dataclasses.replace(cfg.runtime, **flags)))
+
+    def serve(det, batched, some=None):
+        """(results, region masks, seconds, Radon launches) of the pages
+        after one untimed warm-up page."""
+        masks = []
+        real = det.host_phase
+
+        def host_phase(st, pre=None):
+            masks.append(st.region_mask)
+            return real(st, pre)
+
+        todo = pages if some is None else pages[:some]
+        if batched:
+            list(det.process_batch(iter(pages[:1])))
+        else:
+            det.process_image(*pages[0])
+        det.host_phase = host_phase
+        try:
+            torch.cuda.synchronize()
+            radon.launches = 0
+            t0 = time.time()
+            if batched:
+                results = list(det.process_batch(iter(todo)))
+            else:
+                results = [det.process_image(*p) for p in todo]
+            torch.cuda.synchronize()
+            return results, masks, time.time() - t0, radon.launches
+        finally:
+            del det.host_phase
+
+    def single_stream(det):
+        det._worker_stream = contextlib.nullcontext
+        return det
+
+    runs = [
+        ("a", "process_image, one after another", detector(), False),
+        ("b", "process_batch, 1 worker, no page-box window",
+         detector(device_phase_workers=1, page_box_batch=0), True),
+        ("c", "process_batch under DEFAULT_CONFIG (2 workers, windows of "
+         "8, a stream per worker)", detector(), True),
+        ("c-one-stream", "as (c), every thread on the default stream",
+         single_stream(detector()), True),
+        ("c-3-workers", "as (c), 3 workers",
+         detector(device_phase_workers=3), True),
+        ("d", "process_batch, pages_per_dispatch=4",
+         detector(pages_per_dispatch=4), True)]
+    rows, ref, total = [], None, 0
+    for key, what, det, batched in runs:
+        results, masks, sec, launches = serve(det, batched)
+        if key in ("a", "b", "c", "d"):
+            total += launches
+        found = [ET_page_name(r) for r in results]
+        if found != names:
+            raise AssertionError(f"({key}) results out of order: {found}")
+        if det.degraded or any(r.degraded for r in results):
+            raise AssertionError(f"({key}) {det.degraded} page(s) degraded")
+        _no_fallbacks(det, f"batch run ({key})")
+        if ref is None:
+            ref = (results, masks)
+        per_page = []
+        for i, (res, mask) in enumerate(zip(results, masks)):
+            want, want_mask = ref[0][i], ref[1][i]
+            th, tw = stages.working_dims(pages[i][0], cfg)
+            mh, mw = models.page.input_hw
+            moved = _box_moved(res.page_coord, want.page_coord,
+                               (th / mh, tw / mw))
+            dev_s = res.device_timings["total"]
+            per_page.append({
+                "page": names[i], "regions": len(res.contours),
+                "xml_equal": _xml_body(res) == _xml_body(want),
+                "slopes_equal": res.slopes == want.slopes,
+                "page_box": res.page_coord,
+                "page_box_moved_model_px": max(moved),
+                "mask_diff_share": _mask_diff_share(
+                    mask, res.page_coord, want_mask, want.page_coord),
+                "regions_equal": len(res.contours) == len(want.contours),
+                "timings": res.timings,
+                "device_timings": res.device_timings, "flops": res.flops,
+                "flops_per_device_s": res.flops / dev_s if dev_s else None})
+        row = {"run": key, "what": what, "seconds": sec,
+               "pages_per_s": len(pages) / sec, "radon_launches": launches,
+               "pages": per_page}
+        rows.append(row)
+        moved = [p for p in per_page if p["page_box_moved_model_px"] > 0]
+        print(f"batch ({key}) {what}: {len(pages)} pages in {sec:.3f} s, "
+              f"{row['pages_per_s']:.3f} pages/s, {launches} radon "
+              f"launches; against (a): PAGE-XML equal on "
+              f"{sum(p['xml_equal'] for p in per_page)}, slopes on "
+              f"{sum(p['slopes_equal'] for p in per_page)}, page box on "
+              f"{len(pages) - len(moved)} of {len(pages)} pages; largest "
+              f"share of differing region-mask pixels "
+              f"{max(p['mask_diff_share'] for p in per_page):.3g}",
+              flush=True)
+        for p in moved:
+            print(f"  {p['page']}: the page box moved by "
+                  f"{p['page_box_moved_model_px']:.2f} model-resolution "
+                  f"pixels: {p['page_box']}", flush=True)
+            if p["page_box_moved_model_px"] > 1.0:
+                raise AssertionError(f"({key}) {p['page']}: the page box "
+                                     "moved by more than one model pixel")
+        for p in per_page:
+            if key == "d":
+                if not (p["mask_diff_share"] <= BATCH_MASK_LIMIT
+                        and p["regions_equal"]):
+                    raise AssertionError(
+                        f"(d) {p['page']}: region mask differs on "
+                        f"{p['mask_diff_share']:.3g} (limit "
+                        f"{BATCH_MASK_LIMIT:g}), regions "
+                        f"{p['regions']}")
+            elif not p["page_box_moved_model_px"] and not (
+                    p["xml_equal"] and p["slopes_equal"]):
+                raise AssertionError(f"({key}) {p['page']}: PAGE-XML or "
+                                     "slopes differ from process_image's")
+    grids = {models.region.grid_for(p["page_box"][1] - p["page_box"][0],
+                                    p["page_box"][3] - p["page_box"][2],
+                                    cfg.tiling.margin_ratio)
+             for p in rows[0]["pages"]}
+    print(f"batch pages: tile grids {sorted(grids)}; regions "
+          f"{[p['regions'] for p in rows[0]['pages']]}", flush=True)
+    if len(grids) < 2:
+        raise AssertionError("the batch pages share one tile grid")
+    for key in ("a", "c"):
+        row = next(r for r in rows if r["run"] == key)
+        for p in row["pages"][:3]:
+            d = p["device_timings"]
+            print(f"  ({key}) {p['page']}: device seconds "
+                  + " ".join(f"{k}={v:.3f}" for k, v in d.items())
+                  + f" of total={p['timings']['total']:.3f} s wall; "
+                  f"{p['flops'] / 1e12:.3f} TFLOP, "
+                  f"{p['flops_per_device_s'] / 1e12:.2f} TFLOP/s over the "
+                  f"device seconds ({p['flops_per_device_s'] / BF16_OPS_S:.4f}"
+                  f" of the {details['card'].split(',')[0]}'s dense bf16 "
+                  f"peak of {BF16_OPS_S / 1e12:.0f} TFLOP/s)", flush=True)
+    # the card's idle share, sequential against pipelined, on fewer pages
+    # (the profiler slows the host)
+    profiles = {}
+    for key, det, batched in (("a", detector(), False),
+                              ("c", detector(), True)):
+        profiles[key] = _device_busy(
+            lambda: serve(det, batched, BATCH_PROFILED_PAGES))
+        p = profiles[key]
+        print(f"batch ({key}) under torch.profiler, a warm-up page and "
+              f"{BATCH_PROFILED_PAGES} pages: wall {p['wall_s']:.3f} s, "
+              f"device busy {p['device_busy_s']:.3f} s (kernels and copies "
+              f"add up to {p['device_sum_s']:.3f} s), idle share "
+              f"{p['idle_share']:.3f}", flush=True)
+    a = rows[0]["pages_per_s"]
+    print("batch summary, pages/s: " + ", ".join(
+        f"({r['run']}) {r['pages_per_s']:.3f} ({r['pages_per_s'] / a:.2f}x)"
+        for r in rows), flush=True)
+    details["batch"] = {"runs": rows, "profiles": profiles,
+                        "tile_grids": sorted(grids)}
+    return total
+
+
+def ET_page_name(res):
+    """The imageFilename a result's PAGE-XML carries."""
+    for el in res.xml_tree.getroot().iter():
+        if el.tag.endswith("}Page") or el.tag == "Page":
+            return el.get("imageFilename")
+    return None
 
 
 def _tint(img):
@@ -1143,6 +1494,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--details", help="write the run's details (JSON) "
                         "to this path")
+    parser.add_argument("--only", choices=["batch"], help="a shorter run: "
+                        "leave out the fallback ladder, the classic bundle "
+                        "and training")
     args = parser.parse_args()
     try:
         import torch
@@ -1184,13 +1538,17 @@ def main() -> int:
     unet_phase(dev, details)
     launches, det, pages = pipeline_phase(dev, details)
     profile_phase(det, pages[1], details)
-    launches += fallback_phase(details, det.models, pages[1])
+    if not args.only:
+        launches += fallback_phase(details, det.models, pages[1])
+    radon_busy_phase(det, pages[1], details)
+    launches += batch_phase(details, det.models)
     del det
-    launches += classic_phase(dev, details)
-    train_parity_phase(dev, details)
-    dual = train_phase(dev, details)
-    serve_trained_phase(dev, details, dual,
-                        [p["regions"] for p in details["pages"]])
+    if not args.only:
+        launches += classic_phase(dev, details)
+        train_parity_phase(dev, details)
+        dual = train_phase(dev, details)
+        serve_trained_phase(dev, details, dual,
+                            [p["regions"] for p in details["pages"]])
 
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)),
