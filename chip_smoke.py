@@ -51,13 +51,15 @@ Phases (any failure raises and the script exits non-zero):
      phase may have counted a fallback;
   6. the pipelined batch on the same bundle (batch_phase): the Radon
      kernel against its plain version once more while a second thread
-     runs segmentation forwards on a stream of its own, as the batch's
+     runs segmentation forwards on the same stream, as the batch's
      workers do; then 8 A4 pages (skews 0, 8, -15 and repeats, one page
      2900 px high so that two tile grids occur) served (a) by
      process_image one after another, (b) by process_batch with one
      worker and no page-box window, (c) under DEFAULT_CONFIG (2 workers,
-     windows of 8), also with every thread on the default stream and with
-     3 workers, and (d) with pages_per_dispatch=4; each after one warm-up
+     windows of 8), also with 3 workers and with a CUDA stream per worker
+     (the design the detector does not use: this script puts the workers'
+     device phases on streams of their own to keep the comparison
+     measured), and (d) with pages_per_dispatch=4; each after one warm-up
      page. Printed: pages per second, Radon launches, each page's
      device_timings, FLOPs and the FLOP/s they imply, and the card's idle
      share for (a) and (c) on the first 4 pages under torch.profiler. It
@@ -704,8 +706,8 @@ def _device_busy(fn):
 
 def radon_busy_phase(det, page, details):
     """The Radon kernel beside a busy second thread: while a thread runs
-    the page's fused segmentation again and again on a stream of its own
-    (what a device-phase worker of the batch does), the kernel is held
+    the page's device phase again and again (what a device-phase worker
+    of the batch does, on the same default stream), the kernel is held
     against its plain version at the chain's first shape and timed."""
     import threading
 
@@ -724,10 +726,9 @@ def radon_busy_phase(det, page, details):
 
     def busy():
         try:
-            with det._worker_stream():
-                while not stop.is_set():
-                    det._device_phase_raw(*page)
-                    passes.append(1)
+            while not stop.is_set():
+                det._device_phase_raw(*page)
+                passes.append(1)
         except Exception as exc:    # shown by the main thread below
             errors.append(exc)
 
@@ -835,8 +836,8 @@ def batch_phase(details, models):
     """The pipelined batch against sequential process_image on 8 A4 pages
     (see the module docstring, phase 6). Returns the Radon launches of its
     runs (a)-(d)."""
-    import contextlib
     import dataclasses
+    import threading
 
     import torch
 
@@ -882,8 +883,30 @@ def batch_phase(details, models):
         finally:
             del det.host_phase
 
-    def single_stream(det):
-        det._worker_stream = contextlib.nullcontext
+    def stream_per_worker(det):
+        """The other stream design, put on from outside: each worker
+        thread runs its device phases on a CUDA stream of its own and
+        waits for it before it hands the pages over; the main thread,
+        on the default stream, tells the allocator that it reads the
+        textline canvases which those streams allocated."""
+        group, dispatch = det.device_phase_group, det.host_phase_dispatch
+        tls = threading.local()
+
+        def device_phase_group(items):
+            if not hasattr(tls, "stream"):
+                tls.stream = torch.cuda.Stream()
+            with torch.cuda.stream(tls.stream):
+                states = group(items)
+                tls.stream.synchronize()
+            return states
+
+        def host_phase_dispatch(st):
+            if st.textline_dev is not None:
+                st.textline_dev.record_stream(torch.cuda.current_stream())
+            return dispatch(st)
+
+        det.device_phase_group = device_phase_group
+        det.host_phase_dispatch = host_phase_dispatch
         return det
 
     runs = [
@@ -891,11 +914,11 @@ def batch_phase(details, models):
         ("b", "process_batch, 1 worker, no page-box window",
          detector(device_phase_workers=1, page_box_batch=0), True),
         ("c", "process_batch under DEFAULT_CONFIG (2 workers, windows of "
-         "8, a stream per worker)", detector(), True),
-        ("c-one-stream", "as (c), every thread on the default stream",
-         single_stream(detector()), True),
+         "8)", detector(), True),
         ("c-3-workers", "as (c), 3 workers",
          detector(device_phase_workers=3), True),
+        ("c-streams", "as (c), a CUDA stream per worker",
+         stream_per_worker(detector()), True),
         ("d", "process_batch, pages_per_dispatch=4",
          detector(pages_per_dispatch=4), True)]
     rows, ref, total = [], None, 0

@@ -315,10 +315,20 @@ class SegmentationModel:
         the canvas pixels that hold page data), take the Otsu threshold
         of channel 0 over the box, gather the ny x nx tiles from the box
         origin (starts clamp into the canvas). Then `forward(batch, tb)`
-        -> a tuple of uint8 label batches runs in `_balanced_chunk`
-        chunks, and each label stream is stitched into (K, ny * stride_h,
-        nx * stride_w): every output pixel lies in exactly one tile's
-        central slab, so stitching is one reshape."""
+        -> a tuple of uint8 label batches runs page by page in the
+        `_balanced_chunk` chunks of ONE page's tiles, and each label
+        stream is stitched into (K, ny * stride_h, nx * stride_w): every
+        output pixel lies in exactly one tile's central slab, so stitching
+        is one reshape.
+
+        A chunk never holds tiles of two pages: every forward of a group
+        then has the batch size it has when the page is served alone, so
+        cuDNN runs the same algorithms and a grouped page's labels equal
+        its own. (The reference chunks the K pages' tiles together; its
+        compiler gives the same values for any batch size, cuDNN does
+        not: on full-width random bf16 weights, chunks of 87 tiles of 4
+        pages against 54 of one moved 1.6 % of a page's region-mask
+        pixels, PERF.md section 6.)"""
         mh, mw = self.input_hw
         margin, sh, sw = self._stride(margin_ratio)
         k = len(canvases)
@@ -347,14 +357,15 @@ class SegmentationModel:
         tiles = torch.cat(tiles)                   # (k*n, mh, mw[, 3])
         t_tiles = torch.stack(ts).repeat_interleave(n)
 
-        total = k * n
-        chunk = _balanced_chunk(total, self.runtime.tile_chunk)
+        chunk = _balanced_chunk(n, self.runtime.tile_chunk)
         streams = None
-        for c0 in range(0, total, chunk):
-            out = forward(tiles[c0:c0 + chunk], t_tiles[c0:c0 + chunk])
-            streams = streams or [[] for _ in out]
-            for stream, labels in zip(streams, out):
-                stream.append(labels)
+        for p0 in range(0, k * n, n):
+            for c0 in range(p0, p0 + n, chunk):
+                c1 = min(c0 + chunk, p0 + n)
+                out = forward(tiles[c0:c1], t_tiles[c0:c1])
+                streams = streams or [[] for _ in out]
+                for stream, labels in zip(streams, out):
+                    stream.append(labels)
 
         def stitch(labels):
             slabs = torch.cat(labels)[:, margin:margin + sh,
@@ -493,11 +504,10 @@ class SegmentationModel:
                                  return_device_textline: bool = False,
                                  textline_projection: bool = False):
         """predict_dual_tiled for K page crops at once: each crop goes up
-        padded, and the K pages' tiles run as one batch in
-        `_balanced_chunk` chunks. Every page keeps its own Otsu threshold
-        and its own white border, so each result equals its
-        predict_dual_tiled (up to argmax ties where the other chunking
-        makes cuDNN pick another algorithm). All crops must map to ONE
+        padded, and the K pages' tiles are gathered, run (in each page's
+        own chunks, see _tile_labels) and stitched together. Every page
+        keeps its own Otsu threshold and its own white border, so each
+        result equals its predict_dual_tiled. All crops must map to ONE
         tile grid (grid_for): a smaller page on a larger grid would see
         its canvas border moved, and ValueError says so. Returns one tuple
         per page, in input order."""

@@ -40,13 +40,12 @@ the host phase of the page before them; with `runtime.pages_per_dispatch`
 above 1 the pages of a group share one page-model forward and one tile
 batch (device_phase_group, on the standard path); else the page-model
 forwards of up to `runtime.page_box_batch` upcoming pages are folded into
-one on a prefetch thread (_page_box_prefetch). On a CUDA device each of
-those threads issues its work on a stream of its own and waits for it
-before it hands a page over, and the calling thread stays on the default
-stream: a page's deskew chain and the next page's segmentation then do
-not queue behind each other (_worker_stream, _adopt). Results come in
-input order, a page whose device phase fails before any page box exists
-comes out degraded in its place, and both counters are guarded by a lock.
+one on a prefetch thread (_page_box_prefetch). Every thread issues its
+device work on the default stream, so the card runs it in the order of
+issue and no tensor crosses streams (a stream per worker measured no
+faster on the H100: PERF.md section 6). Results come in input order, a
+page whose device phase fails before any page box exists comes out
+degraded in its place, and both counters are guarded by a lock.
 
 Every stage also reports its time on the device and its FLOPs
 (utils/stagetime): `PageResult.device_timings` and `PageResult.flops`.
@@ -219,7 +218,6 @@ class TextlineDetector:
         self.fallbacks: collections.Counter = collections.Counter()
         # both are written by the batch's worker threads too
         self._count_lock = threading.Lock()
-        self._tls = threading.local()
 
     def _fell_back(self, rung: str) -> None:
         with self._count_lock:
@@ -702,36 +700,6 @@ class TextlineDetector:
             return 0
         return n
 
-    @contextlib.contextmanager
-    def _worker_stream(self):
-        """On a CUDA device: run the block's device work on a stream that
-        belongs to the calling thread, and wait for it at the end, so
-        that whatever the block hands to another thread is complete. A
-        worker's segmentation then does not queue in front of the deskew
-        chain that the main thread issues on the default stream."""
-        device = self.models.region.device
-        if device.type != "cuda":
-            yield
-            return
-        stream = getattr(self._tls, "stream", None)
-        if stream is None:
-            stream = self._tls.stream = torch.cuda.Stream(device)
-        with torch.cuda.stream(stream):
-            try:
-                yield
-            finally:
-                stream.synchronize()
-
-    def _adopt(self, states) -> None:
-        """Tell the caching allocator that the calling thread's stream
-        now reads the device tensors that a worker's stream allocated:
-        their memory is then not handed out again, once they are freed,
-        before this stream's reads have run."""
-        for st in states:
-            dev = None if st is None else st.textline_dev
-            if dev is not None and dev.is_cuda:
-                dev.record_stream(torch.cuda.current_stream(dev.device))
-
     def _page_box_prefetch(self, images, batch: int):
         """Batched page-box stage: pulls up to `batch` upcoming pages,
         gathers each page-model input on the host
@@ -767,9 +735,8 @@ class TextlineDetector:
                 dims.append((th, tw))
                 smalls.append(stages.page_model_input_from_raw(
                     img, th, tw, mh, mw))
-            with self._worker_stream():
-                labels = self.models.page.predict_smalls_prescaled_batch(
-                    np.stack(smalls), pad_to=batch)
+            labels = self.models.page.predict_smalls_prescaled_batch(
+                np.stack(smalls), pad_to=batch)
             boxes = []
             for (th, tw), lab in zip(dims, labels):
                 try:
@@ -885,10 +852,6 @@ class TextlineDetector:
                     return
                 yield group
 
-        def run_group(items):
-            with self._worker_stream():
-                return self.device_phase_group(items)
-
         groups = grouped()
         pending: collections.deque = collections.deque()
         pool = ThreadPoolExecutor(max_workers=workers,
@@ -897,7 +860,8 @@ class TextlineDetector:
         def submit():
             items = next(groups, None)
             if items is not None:
-                pending.append((items, pool.submit(run_group, items)))
+                pending.append((items, pool.submit(self.device_phase_group,
+                                                  items)))
 
         try:
             for _ in range(max(workers, prefetch)):
@@ -911,10 +875,10 @@ class TextlineDetector:
                                 "PAGE-XML", [it[1] for it in items],
                                 exc_info=True)
                     states = [None] * len(items)
-                self._adopt(states)
                 # This group's deskew chains go to the device before the
-                # next group's segmentation is submitted: a chain issued
-                # later would have the host phase wait behind all of it.
+                # next group's segmentation is submitted: the card runs
+                # its work in the order of issue, so a chain issued later
+                # would have the host phase wait behind all of it.
                 pres = [None if st is None else self.host_phase_dispatch(st)
                         for st in states]
                 submit()

@@ -157,9 +157,10 @@ def _multi_crops(jm):
 @pytest.mark.parametrize("keep_dev,proj", [(False, False), (True, False),
                                            (True, True)])
 def test_predict_dual_tiled_multi_matches_jax(models, keep_dev, proj):
-    """Three crops of one grid as one tile batch (12 tiles in 3 chunks
-    where a single page runs 4 in one): equal to the JAX function and to
-    three predict_dual_tiled calls of the port, in every output mode."""
+    """Three crops of one grid as one tile batch (the JAX function runs
+    the 12 tiles in 3 chunks of 4 across the pages, the port each page's
+    4 in a chunk of its own): equal to the JAX function and to three
+    predict_dual_tiled calls of the port, in every output mode."""
     jm, tm = models
     crops = _multi_crops(jm)
     kw = dict(SHAPING, return_device_textline=keep_dev,
