@@ -14,7 +14,8 @@ Phases (any failure raises and the script exits non-zero):
      atol 1e-2), and at the host sweep's shapes (8 x 80 and 8 x 30 angles
      at S = 512, 2 x 80 at S = 256) on canvases that
      DeskewEngine._canvas_into renders from a synthetic page's own
-     paragraph crops; on the noise the kernel, the plain version and the
+     paragraph crops; on the noise and the page crops the kernel, the
+     plain version and the
      library's matrix form (two float32 torch.bmm per pair, A and B built
      in advance; timed only) are timed with CUDA events beside the bound
      (canvas and output bytes at 3.35 TB/s against 8 float32 operations
@@ -332,10 +333,15 @@ def _host_sweep_rows(dev):
                "set_pixels": int((canv != 0).sum()), "max_abs_err": err,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "ms": radon_bench.cuda_time(
-                   lambda: radon.radon_pairs(canv, angles), 50)}
+                   lambda: radon.radon_pairs(canv, angles), 50),
+               "plain_ms": radon_bench.cuda_time(
+                   lambda: radon.radon_pairs_plain(canv, cosv, sinv), 3),
+               "library_ms": _radon_library_ms(canv, cosv, sinv)}
         rows.append(row)
         print(f"radon kernel, {r} x {n_angles} pairs at S={s} on "
-              f"{row['canvas']}: {row['ms']:.4f} ms, bound {bound_ms:.3g} "
+              f"{row['canvas']}: {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.3f} ms, library (2 f32 bmm) "
+              f"{row['library_ms']:.3f} ms, bound {bound_ms:.3g} "
               f"ms by {bound_by}, {row['set_pixels']} set pixels, max |err| "
               f"{err:.3g} (rtol 1e-4, atol 1e-2)", flush=True)
     return rows
@@ -942,11 +948,11 @@ def batch_phase(details, models):
             moved = _box_moved(res.page_coord, want.page_coord,
                                (th / mh, tw / mw))
             dev_s = res.device_timings["total"]
+            flipped, rest_equal = _regions_that_differ(res, want)
             per_page.append({
                 "page": names[i], "regions": len(res.contours),
                 "xml_equal": _xml_body(res) == _xml_body(want),
-                "slopes_differing": _regions_that_differ(res, want)[0],
-                "rest_equal": _regions_that_differ(res, want)[1],
+                "slopes_differing": flipped, "rest_equal": rest_equal,
                 "page_box": res.page_coord,
                 "page_box_moved_model_px": max(moved),
                 "mask_diff_share": _mask_diff_share(

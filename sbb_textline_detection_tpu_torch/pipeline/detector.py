@@ -40,9 +40,9 @@ the host phase of the page before them; with `runtime.pages_per_dispatch`
 above 1 the pages of a group share one page-model forward and one tile
 batch (device_phase_group, on the standard path); else the page-model
 forwards of up to `runtime.page_box_batch` upcoming pages are folded into
-one on a prefetch thread (_page_box_prefetch). Every thread issues its
+one on a prefetch thread (_page_box_prefetch). Every thread puts its
 device work on the default stream, so the card runs it in the order of
-issue and no tensor crosses streams (a stream per worker measured no
+launch and no tensor crosses streams (a stream per worker measured no
 faster on the H100: PERF.md section 6). Results come in input order, a
 page whose device phase fails before any page box exists comes out
 degraded in its place, and both counters are guarded by a lock.
@@ -289,16 +289,9 @@ class TextlineDetector:
         else:
             mh, mw = self.models.page.input_hw
             small = stages.page_model_input_from_raw(image, th, tw, mh, mw)
-            try:
-                small_labels = self.models.page.predict_small_prescaled(small)
-                box = stages._page_box_model_res(small_labels, th, tw, cfg)
-            except Exception:
-                # reference fallback: the whole image (main.py:406-426
-                # shape quirk included)
-                LOG.warning("page-border detection failed for %s; using "
-                            "the whole page", image_filename, exc_info=True)
-                self._fell_back("whole_page_box")
-                box = [0, 0, tw - 1, th - 1]
+            box = stages._page_box_or_whole(
+                lambda: self.models.page.predict_small_prescaled(small),
+                th, tw, cfg, self._fell_back, image_filename)
         page_coord = [box[1], box[1] + box[3], box[0], box[0] + box[2]]
         t["page_extraction"] = time.time() - t0 + t_share
         d, flops = stagetime.snapshot()
@@ -737,19 +730,10 @@ class TextlineDetector:
                     img, th, tw, mh, mw))
             labels = self.models.page.predict_smalls_prescaled_batch(
                 np.stack(smalls), pad_to=batch)
-            boxes = []
-            for (th, tw), lab in zip(dims, labels):
-                try:
-                    boxes.append(stages._page_box_model_res(
-                        lab, th, tw, self.config))
-                except Exception:
-                    # reference fallback: the whole image (main.py:406-426
-                    # shape quirk included)
-                    LOG.warning("page-border detection failed; using the "
-                                "whole page", exc_info=True)
-                    self._fell_back("whole_page_box")
-                    boxes.append([0, 0, tw - 1, th - 1])
-            return boxes
+            return [stages._page_box_or_whole(lab, th, tw, self.config,
+                                              self._fell_back, name)
+                    for (th, tw), lab, (_, name) in zip(dims, labels,
+                                                        window)]
 
         def worker():
             it = None
@@ -877,8 +861,8 @@ class TextlineDetector:
                     states = [None] * len(items)
                 # This group's deskew chains go to the device before the
                 # next group's segmentation is submitted: the card runs
-                # its work in the order of issue, so a chain issued later
-                # would have the host phase wait behind all of it.
+                # its work in the order of launch, so a chain launched
+                # later would have the host phase wait behind all of it.
                 pres = [None if st is None else self.host_phase_dispatch(st)
                         for st in states]
                 submit()

@@ -113,25 +113,34 @@ def _page_box_model_res(small: np.ndarray, h: int, w: int,
     return [x0, y0, max(1, x1 - x0 + 1), max(1, y1 - y0 + 1)]
 
 
+def _page_box_or_whole(labels, h: int, w: int, cfg: PipelineConfig,
+                       on_fallback=None, name: str = "") -> List[int]:
+    """_page_box_model_res of the page model's label map (`labels`, or a
+    function that runs the forward and returns it). On any failure: the
+    whole image (main.py:406-426, shape quirk included), and
+    `on_fallback` is told ("whole_page_box")."""
+    try:
+        return _page_box_model_res(labels() if callable(labels) else labels,
+                                   h, w, cfg)
+    except Exception:
+        logger.warning("page-border detection failed for %s; using the "
+                       "whole page", name or "a page", exc_info=True)
+        if on_fallback is not None:
+            on_fallback("whole_page_box")
+        return [0, 0, w - 1, h - 1]
+
+
 def extract_page(scaled: ScaledImage, models: ModelBundle,
                  cfg: PipelineConfig, on_fallback=None
                  ) -> Tuple[np.ndarray, List[int], np.ndarray]:
     """Border/printspace detection (main.py:384-437): whole-image page
     model, largest component's bbox decided at model resolution, crop.
-    Fallback on any failure: the whole image, and `on_fallback` is told
-    ("whole_page_box")."""
+    Fallback on any failure: the whole image (_page_box_or_whole)."""
     img = scaled.image
     h, w = img.shape[:2]
-    try:
-        small = models.page.predict_whole_small(img)
-        box = _page_box_model_res(small, h, w, cfg)
-    except Exception:
-        logger.warning("page-border detection failed; using the whole "
-                       "page", exc_info=True)
-        if on_fallback is not None:
-            on_fallback("whole_page_box")
-        box = [0, 0, w - 1, h - 1]
-    return _crop_to_box(img, box)
+    return _crop_to_box(img, _page_box_or_whole(
+        lambda: models.page.predict_whole_small(img), h, w, cfg,
+        on_fallback))
 
 
 def extract_page_batch(scaleds: List[ScaledImage], models: ModelBundle,
@@ -152,19 +161,9 @@ def extract_page_batch(scaleds: List[ScaledImage], models: ModelBundle,
         if on_fallback is not None:
             on_fallback("page_box_batch")
         return [extract_page(s, models, cfg, on_fallback) for s in scaleds]
-    out = []
-    for s, small in zip(scaleds, smalls):
-        h, w = s.image.shape[:2]
-        try:
-            box = _page_box_model_res(small, h, w, cfg)
-        except Exception:
-            logger.warning("page-border detection failed; using the whole "
-                           "page", exc_info=True)
-            if on_fallback is not None:
-                on_fallback("whole_page_box")
-            box = [0, 0, w - 1, h - 1]
-        out.append(_crop_to_box(s.image, box))
-    return out
+    return [_crop_to_box(s.image, _page_box_or_whole(
+        small, s.image.shape[0], s.image.shape[1], cfg, on_fallback))
+        for s, small in zip(scaleds, smalls)]
 
 
 def _crop_to_box(img: np.ndarray, box: List[int]

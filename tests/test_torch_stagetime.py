@@ -18,7 +18,6 @@ import json
 import threading
 import time
 
-import numpy as np
 import pytest
 import torch
 from click.testing import CliRunner
