@@ -11,7 +11,8 @@ Phases (any failure raises and the script exits non-zero):
   3. the kernel against its plain PyTorch version at the main path's
      shapes (8 and 2 regions x 110 angles at S = 512, 8 x 110 at S = 256)
      on binary canvases at ~20% fill and on text-like bands (rtol 1e-4,
-     atol 1e-2), and at the host sweep's shapes (8 x 80 and 8 x 30 angles
+     atol 1e-2), each shape launched REPRO_LAUNCHES times with bitwise
+     equal outputs, and at the host sweep's shapes (8 x 80 and 8 x 30 angles
      at S = 512, 2 x 80 at S = 256) on canvases that
      DeskewEngine._canvas_into renders from a synthetic page's own
      paragraph crops; on the noise and the page crops the kernel, the
@@ -24,8 +25,10 @@ Phases (any failure raises and the script exits non-zero):
      the card against the same chain on the CPU (plain version) on drawn
      text lines; the dual-head U-Net forward on the card against the CPU
      in float32;
-  4. a full-width random-weight bundle (bf16 compute, float32 GroupNorm)
-     runs process_batch over 3 synthetic A4 pages (3508x2480,
+  4. (every serving run below uses DEFAULT_CONFIG with the deskew buffer
+     cap lifted to SMOKE_BUF_MAX, see there; flags_phase also serves the
+     reference's cap) a full-width random-weight bundle (bf16 compute,
+     float32 GroupNorm) runs process_batch over 3 synthetic A4 pages (3508x2480,
      skews 0, 8 and -15 degrees): no page may degrade, the Radon kernel
      must have launched, at least one region must carry a nonzero slope,
      and every PAGE-XML must parse; then the classic three-model bundle:
@@ -50,10 +53,26 @@ Phases (any failure raises and the script exits non-zero):
      host_sweep fallback counted), and textline_projection off (the same
      PAGE-XML, reading order included); no page may degrade, and no other
      phase may have counted a fallback;
-  6. the pipelined batch on the same bundle (batch_phase): the Radon
-     kernel against its plain version once more while a second thread
-     runs segmentation forwards on the same stream, as the batch's
-     workers do; then 8 A4 pages (skews 0, 8, -15 and repeats, one page
+  6. the Radon kernel against its plain version once more while a second
+     thread runs segmentation forwards on the same stream, as the batch's
+     workers do (REPRO_LAUNCHES launches bitwise equal to each other and
+     to the launch made alone); then the runtime flags of the last paths
+     the port took (flags_phase), on the 3 pages of phase 4 against
+     the serving config: DEFAULT_CONFIG itself (a page with a region over
+     its cap takes the host sweep once), device_page_box and
+     fused_page_box (the device
+     component box printed beside the host box; on the same box the
+     region mask and row projection must equal the raw path's, and the
+     fused box the headless one), spec_deskew (speculative and ordinary
+     regions counted; slopes bit-equal to the default run's, profiles
+     within SPEC_PROFILE_RTOL / _ATOL, and PAGE-XML equal but for the
+     lines of regions whose crop buffer differed, printed), and
+     deskew_buf_max one below the page's largest region side (at least
+     one region over the cap, one host_sweep fallback a page, slopes
+     within SWEEP_SLOPE_LIMIT); no page may degrade and no other fallback
+     be counted; ops/cc on the card against the CPU on the page model's
+     dilated labels and a page's region mask, timed with CUDA events;
+  7. the pipelined batch on the same bundle (batch_phase): 8 A4 pages (skews 0, 8, -15 and repeats, one page
      2900 px high so that two tile grids occur) served (a) by
      process_image one after another, (b) by process_batch with one
      worker and no page-box window, (c) under DEFAULT_CONFIG (2 workers,
@@ -63,17 +82,16 @@ Phases (any failure raises and the script exits non-zero):
      measured), and (d) with pages_per_dispatch=4; each after one warm-up
      page. Printed: pages per second, Radon launches, each page's
      device_timings, FLOPs and the FLOP/s they imply, and the card's idle
-     share for (a) and (c) on the first 4 pages under torch.profiler. It
-     fails if (b) or (c) differ from (a) in a page's PAGE-XML, other
-     than through a page box that the batched page forward moved by at
-     most one model-resolution pixel a side (printed) or through the
-     slopes and lines of at most BATCH_SLOPE_FLIPS regions (see there:
-     process_image differs from itself so); if (d) differs
+     share for (a) and (c) on the first 4 pages under torch.profiler
+     (these servings too must equal (a)'s first). It fails if (b) or (c)
+     differ from (a) in a page's PAGE-XML, other than through a page box
+     that the batched page forward moved by at most one model-resolution
+     pixel a side (printed); if (d) differs
      from (a) in more than BATCH_MASK_LIMIT of a page's region-mask
      pixels or in its region count; if a page degrades, a fallback is
      counted or results come out of order. A slower batch is written
      down, not failed;
-  7. training, on the dual-head model at full width (DUALHEAD_SPEC: widths
+  8. training, on the dual-head model at full width (DUALHEAD_SPEC: widths
      (32, 64, 128, 256), 448x448, 2 input channels, heads (3, 2)):
      (a) one float32 AdamW step (TF32 off) from the same random_init
      weights on one seeded dualhead_batch of 2, on the card and on the
@@ -87,8 +105,8 @@ Phases (any failure raises and the script exits non-zero):
      ModelBundle.from_dir, and serve one A4 page, which must not degrade.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. The kernel line's launches add up phases
-4, 5 and 6 (a)-(d). With --only batch, phases 4 (classic bundle), 5 and 7
-are left out (a shorter run while working on the batch; the default runs
+4, 5, 6 (the flags) and 7 (a)-(d). With --only batch, phases 4 (classic
+bundle), 5 and 8 are left out (a shorter run while working on the batch; the default runs
 everything). With --details PATH, the run's details
 (ptxas report, per-page stage timings, kernel times) are written there as
 JSON. After the timed pages, the second page runs once more under
@@ -148,6 +166,25 @@ CLASSIC_REGION_SHARES = (0.5, 0.7, 0.85, 0.95)
 # and a near-tie may go to the neighbouring angle)
 LADDER_MASK_LIMIT = 1e-3
 SWEEP_SLOPE_LIMIT = 50.0 / 79.0 + 1e-6
+# The deskew buffer cap of the script's serving runs (_serve_config).
+# Random weights mark the whole page crop as one text region (4209 x 2927
+# working pixels on the skew 0 page) beside hundreds of small ones; that
+# is above the reference's cap of 2816 (RuntimeConfig.deskew_buf_max), so
+# under DEFAULT_CONFIG every page goes to the host sweep, as the reference
+# sends it (a trained model's regions are paragraphs). The serving runs
+# lift the cap above the working page, so that their pages run the
+# resident chain; flags_phase serves the pages under the reference's cap
+# and under one below each page's largest region.
+SMOKE_BUF_MAX = 8192
+# launches of the Radon kernel on the same inputs that must come out
+# bitwise equal (its cross-block sums are integer atomics)
+REPRO_LAUNCHES = 20
+# flags_phase: the speculative slots' profiles against the ordinary
+# chain's (a slot's crop buffer is spec_buffer_shape, an ordinary group's
+# its largest crop, so the hat's offset K = bufW // 2 rounds them apart)
+SPEC_PROFILE_RTOL, SPEC_PROFILE_ATOL = 1e-4, 1e-2
+# side of the region-mask square on which ops/cc is held against the CPU
+CC_CHECK_SIDE = 1024
 
 # batch_phase: (height, skew) of its 8 A4-wide pages (the sixth is shorter,
 # so that its crop lands on another tile grid than the others'); the
@@ -160,16 +197,20 @@ SWEEP_SLOPE_LIMIT = 50.0 / 79.0 + 1e-6
 BATCH_PAGES = ((3508, 0.0), (3508, 8.0), (3508, -15.0), (3508, 0.0),
                (3508, 8.0), (2900, -15.0), (3508, 0.0), (3508, 8.0))
 BATCH_MASK_LIMIT = 1e-3
-# The Radon kernel adds its blocks' partial sums with float atomics, whose
-# order varies from launch to launch, and the scorer's thresholds can turn
-# a last-bit difference into another angle: two servings of one page by
-# process_image already differ in about one region's slope in 5,000 (the
-# profiled run of (a) shows it in every run of this script). So a batch
-# may differ from (a) in the slope and lines of at most this many regions
-# of a page, and in nothing else.
-BATCH_SLOPE_FLIPS = 2
 BATCH_PROFILED_PAGES = 4
 BF16_OPS_S = 989e12
+
+
+def _serve_config(**flags):
+    """DEFAULT_CONFIG with the cap SMOKE_BUF_MAX and `flags` on its
+    RuntimeConfig."""
+    import dataclasses
+
+    from sbb_textline_detection_tpu_torch.core.config import DEFAULT_CONFIG
+
+    return dataclasses.replace(DEFAULT_CONFIG, runtime=dataclasses.replace(
+        DEFAULT_CONFIG.runtime, **{"deskew_buf_max": SMOKE_BUF_MAX,
+                                   **flags}))
 
 
 def build_native(details):
@@ -268,9 +309,12 @@ def kernel_phase(dev, details):
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-2)
+            _reproducible(got, lambda: radon.radon_pairs(canv, angles),
+                          f"{r} x {n_angles} at S={s} on {kind}")
             bound_ms, bound_by = _radon_bound(canv, n_angles)
             row = {"regions": r, "s": s, "pairs": r * n_angles,
                    "canvas": kind, "set_pixels": int((canv != 0).sum()),
+                   "bitwise_equal_launches": REPRO_LAUNCHES,
                    "max_abs_err": err, "bound_ms": bound_ms,
                    "bound_by": bound_by,
                    "ms": radon_bench.cuda_time(
@@ -292,15 +336,28 @@ def kernel_phase(dev, details):
     return rows[0]
 
 
-def _host_sweep_rows(dev):
-    """The kernel against its plain version at the host sweep's shapes:
-    the coarse (80) and the vertical (30) angles apart, on canvases that
+def _reproducible(first, launch, what):
+    """Fail unless REPRO_LAUNCHES - 1 more launches equal `first` bit for
+    bit."""
+    import torch
+
+    outs = [launch() for _ in range(REPRO_LAUNCHES - 1)]
+    torch.cuda.synchronize()
+    differ = sum(not torch.equal(o, first) for o in outs)
+    if differ:
+        raise AssertionError(f"radon kernel, {what}: {differ} of "
+                             f"{REPRO_LAUNCHES - 1} launches differ from the "
+                             "first")
+
+
+def _host_sweep_cases(dev):
+    """(name, canvases, angles) at the host sweep's shapes: the coarse (80)
+    and the vertical (30) angles apart, on canvases that
     DeskewEngine._canvas_into renders from the paragraph crops of the
     skew +8 page's dark-pixel mask."""
     import numpy as np
     import torch
 
-    from sbb_textline_detection_tpu_torch.ops import radon, radon_bench
     from sbb_textline_detection_tpu_torch.pipeline import deskew
     from sbb_textline_detection_tpu_torch.utils import synthetic
 
@@ -312,14 +369,28 @@ def _host_sweep_rows(dev):
     if not crops:
         raise AssertionError("the synthetic page has no paragraph crop")
     eng = deskew.DeskewEngine(deskew.DeskewConfig(), device=dev)
-    rows = []
+    cases = []
     for r, s, name in ((8, 512, "_coarse"), (8, 512, "_vertical"),
                        (2, 256, "_coarse")):
         buf = np.zeros((r, s, s), np.uint8)
         for i in range(r):
             eng._canvas_into(crops[i % len(crops)], buf[i])
-        canv = torch.from_numpy(buf).to(dev)
-        angles = torch.from_numpy(getattr(eng, name)).to(dev)
+        cases.append(("page crops, host sweep " + name[1:],
+                      torch.from_numpy(buf).to(dev),
+                      torch.from_numpy(getattr(eng, name)).to(dev)))
+    return cases
+
+
+def _host_sweep_rows(dev):
+    """The kernel against its plain version at the host sweep's shapes
+    (_host_sweep_cases)."""
+    import torch
+
+    from sbb_textline_detection_tpu_torch.ops import radon, radon_bench
+
+    rows = []
+    for name, canv, angles in _host_sweep_cases(dev):
+        r, s = int(canv.shape[0]), int(canv.shape[1])
         cosv, sinv = radon.angle_cos_sin(angles)
         got = radon.radon_pairs(canv, angles)
         want = radon.radon_pairs_plain(canv, cosv, sinv)
@@ -329,7 +400,7 @@ def _host_sweep_rows(dev):
         n_angles = int(angles.shape[0])
         bound_ms, bound_by = _radon_bound(canv, n_angles)
         row = {"regions": r, "s": s, "pairs": r * n_angles,
-               "canvas": "page crops, host sweep " + name[1:],
+               "canvas": name,
                "set_pixels": int((canv != 0).sum()), "max_abs_err": err,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "ms": radon_bench.cuda_time(
@@ -419,7 +490,7 @@ def pipeline_phase(dev, details):
 
     models = ModelBundle.random_init(DEFAULT_CONFIG.runtime, seed=SEED,
                                      device=dev, dual_head=True)
-    det = TextlineDetector(models, DEFAULT_CONFIG)
+    det = TextlineDetector(models, _serve_config())
     pages = []
     for i, skew in enumerate(SKEWS):
         img, _ = synthetic.make_page(np.random.default_rng(SEED + i),
@@ -519,17 +590,13 @@ def fallback_phase(details, models, page):
     and one A4 page: every rung and both deskew routes against the raw
     path with the resident chain. Returns the Radon launches of its
     pages."""
-    import dataclasses
-
     import numpy as np
 
     from sbb_textline_detection_tpu_torch.pipeline.detector import (
-        DEFAULT_CONFIG, TextlineDetector)
+        TextlineDetector)
 
     def detector(**flags):
-        return TextlineDetector(models, dataclasses.replace(
-            DEFAULT_CONFIG, runtime=dataclasses.replace(
-                DEFAULT_CONFIG.runtime, **flags)))
+        return TextlineDetector(models, _serve_config(**flags))
 
     def collect_fails_once(det):
         real = det.deskew.resident_collect
@@ -726,6 +793,7 @@ def radon_busy_phase(det, page, details):
     cosv, sinv = radon.angle_cos_sin(angles)
     r, s = radon_bench.SHAPES[0]
     canv = torch.from_numpy(radon_bench.noise(SEED, r, s)).to(dev)
+    quiet = radon.radon_pairs(canv, angles)
     quiet_ms = radon_bench.cuda_time(lambda: radon.radon_pairs(canv, angles),
                                      50)
     stop, passes, errors = threading.Event(), [], []
@@ -747,6 +815,13 @@ def radon_busy_phase(det, page, details):
         got = radon.radon_pairs(canv, angles)
         want = radon.radon_pairs_plain(canv, cosv, sinv)
         torch.cuda.synchronize()
+        # beside the busy thread: bitwise equal to each other and to the
+        # launch made alone
+        _reproducible(quiet, lambda: radon.radon_pairs(canv, angles),
+                      "beside a busy thread")
+        if not torch.equal(got, quiet):
+            raise AssertionError("radon kernel: the launch beside a busy "
+                                 "thread differs from the one made alone")
         # rounds of 50 launches until two whole segmentation passes have
         # gone by beside them
         rounds = []
@@ -766,6 +841,7 @@ def radon_busy_phase(det, page, details):
     row = {"regions": r, "s": s, "pairs": r * int(angles.shape[0]),
            "canvas": "noise, beside a thread running segmentation",
            "max_abs_err": err, "ms": busy_ms, "quiet_ms": quiet_ms,
+           "bitwise_equal_launches": REPRO_LAUNCHES,
            "rounds_of_50": len(rounds), "ms_min": min(rounds),
            "ms_max": max(rounds),
            "bound_ms": bound_ms, "bound_by": bound_by,
@@ -780,6 +856,298 @@ def radon_busy_phase(det, page, details):
           f"1e-4, atol 1e-2)", flush=True)
     if during < 1:
         raise AssertionError("no segmentation pass ran beside the kernel")
+
+
+def _region_buffers(handle):
+    """The crop buffer (bufH, bufW) each region of a page was projected in,
+    from the handle resident_collect consumed."""
+    from sbb_textline_detection_tpu_torch.pipeline import deskew
+
+    if isinstance(handle, deskew._SpecResolved):
+        fb = iter(_region_buffers(handle.fallback)
+                  if handle.fallback is not None else ())
+        return [(handle.pending.bufH, handle.pending.bufW) if j >= 0
+                else next(fb) for j in handle.mapping]
+    return [(bufH, int(out.shape[1]) - 1 - bufH)
+            for out, group, bufH in handle for _ in group]
+
+
+def _spied(det):
+    """Record on `det` each page's (slopes, profiles, region buffers) from
+    its deskew engine's outermost resident_collect, and each
+    spec_finalize resolution."""
+    eng = det.deskew
+    collect, finalize = eng.resident_collect, eng.spec_finalize
+    det.collected, det.resolved, depth = [], [], [0]
+
+    def resident_collect(handle):
+        depth[0] += 1
+        try:
+            out = collect(handle)
+        finally:
+            depth[0] -= 1
+        if depth[0] == 0:
+            det.collected.append(out + (_region_buffers(handle),))
+        return out
+
+    def spec_finalize(pending, boxes):
+        det.resolved.append(finalize(pending, boxes))
+        return det.resolved[-1]
+
+    eng.resident_collect = resident_collect
+    eng.spec_finalize = spec_finalize
+    return det
+
+
+def _cc_times(dev, models, page, region_mask, details):
+    """ops/cc on the card against the CPU (equal labels and boxes; on the
+    region mask its top-left CC_CHECK_SIDE square, the CPU being slow on a
+    whole page) and its CUDA-event times: on the page model's dilated
+    label map and on a page's region mask (the crop)."""
+    import numpy as np
+    import torch
+
+    from sbb_textline_detection_tpu_torch.ops import cc, morphology
+    from sbb_textline_detection_tpu_torch.ops import radon_bench
+    from sbb_textline_detection_tpu_torch.pipeline import stages
+    from sbb_textline_detection_tpu_torch.pipeline.detector import (
+        DEFAULT_CONFIG)
+
+    img = page[0]
+    th, tw = stages.working_dims(img, DEFAULT_CONFIG)
+    mh, mw = models.page.input_hw
+    labels = models.page.predict_small_prescaled(
+        stages.page_model_input_from_raw(img, th, tw, mh, mw))
+    masks = {"page model labels, dilated": morphology.dilate(
+        torch.from_numpy((labels != 0).astype(np.uint8)), 3, 1),
+        "region mask of " + page[1]: torch.from_numpy(region_mask)}
+    rows = []
+    for what, mask in masks.items():
+        area = float(mask.numel())
+        lo = 0.5 * DEFAULT_CONFIG.region.min_area_ratio * area
+        gpu = mask.to(dev)
+        lab = cc.label_components(gpu)
+        part = mask[:CC_CHECK_SIDE, :CC_CHECK_SIDE].contiguous()
+        if not (torch.equal(cc.label_components(part.to(dev)).cpu(),
+                            cc.label_components(part))
+                and torch.equal(
+                    cc.component_boxes_topk(part.to(dev), 16, lo, area).cpu(),
+                    cc.component_boxes_topk(part, 16, lo, area))
+                and torch.equal(cc.largest_component_box(part.to(dev))[0]
+                                .cpu(), cc.largest_component_box(part)[0])):
+            raise AssertionError(f"ops/cc on the card differs from the CPU "
+                                 f"on the {what}")
+        row = {"mask": what, "shape": list(mask.shape),
+               "components": int((lab.reshape(-1) == torch.arange(
+                   lab.numel(), device=dev, dtype=lab.dtype)).sum()),
+               "label_components_ms": radon_bench.cuda_time(
+                   lambda: cc.label_components(gpu), 3),
+               "component_boxes_topk_ms": radon_bench.cuda_time(
+                   lambda: cc.component_boxes_topk(gpu, 16, lo, area), 3),
+               "largest_component_box_ms": radon_bench.cuda_time(
+                   lambda: cc.largest_component_box(gpu), 3)}
+        rows.append(row)
+        print(f"ops/cc on the {what} {tuple(mask.shape)}, "
+              f"{row['components']} components (equal to the CPU on the "
+              f"top-left {CC_CHECK_SIDE} square): "
+              f"label_components {row['label_components_ms']:.3f} ms, "
+              f"component_boxes_topk(16) "
+              f"{row['component_boxes_topk_ms']:.3f} ms, "
+              f"largest_component_box "
+              f"{row['largest_component_box_ms']:.3f} ms", flush=True)
+    details["cc"] = rows
+
+
+def flags_phase(details, models, pages):
+    """The three SKEWS pages under the runtime flags the port took last
+    (see the module docstring, phase 6). Returns the Radon launches of its
+    servings."""
+    import numpy as np
+
+    from sbb_textline_detection_tpu_torch.pipeline import deskew, stages
+    from sbb_textline_detection_tpu_torch.pipeline.detector import (
+        DEFAULT_CONFIG, TextlineDetector)
+
+    cfg = _serve_config()
+
+    def detector(config=None, **flags):
+        return _spied(TextlineDetector(models,
+                                       config or _serve_config(**flags)))
+
+    def box_of(st):
+        """[x, y, w, h] of a state's page box."""
+        y0, y1, x0, x1 = st.page_coord
+        return [x0, y0, x1 - x0, y1 - y0]
+
+    total, rows = 0, []
+    base = detector()
+    ref = []
+    for page in pages:
+        res, st, sec, launches = _watched_page(base, page)
+        total += launches
+        boxes = stages.region_contours_and_boxes(st.region_mask, cfg)[1]
+        ref.append((res, st, base.collected[-1], boxes))
+        rows.append({"run": "default", "page": page[1], "seconds": sec,
+                     "regions": len(res.contours), "radon_launches": launches,
+                     "largest_region_side": max(max(b[2], b[3])
+                                                for b in boxes)})
+    _no_fallbacks(base, "flags phase, the serving config")
+
+    # the reference's own cap: a page with a region above it takes the
+    # host sweep, once
+    det = detector(DEFAULT_CONFIG)
+    for i, page in enumerate(pages):
+        want_st, boxes = ref[i][1], ref[i][3]
+        capH, capW = det.deskew.resident_buffer_shape(
+            tuple(want_st.textline_dev.shape))
+        over = sum(1 for x, y, w, h in boxes if h > capH or w > capW)
+        before = det.fallbacks["host_sweep"]
+        res, st, sec, launches = _watched_page(det, page)
+        total += launches
+        took = det.fallbacks["host_sweep"] - before
+        rows.append({"run": "DEFAULT_CONFIG", "page": page[1],
+                     "seconds": sec, "regions": len(res.contours),
+                     "regions_over_cap": over, "host_sweeps": took,
+                     "radon_launches": launches})
+        print(f"flags, DEFAULT_CONFIG (cap {capH} x {capW}), {page[1]}: "
+              f"{sec:.3f} s, {over} of {len(boxes)} regions over the cap, "
+              f"{took} host sweep(s), {launches} radon launches",
+              flush=True)
+        if res.degraded or took != (over > 0):
+            raise AssertionError(f"DEFAULT_CONFIG {page[1]}: {over} regions "
+                                 f"over the cap, {took} host sweeps")
+    if set(det.fallbacks) - {"host_sweep"}:
+        raise AssertionError(f"DEFAULT_CONFIG fell back: {det.fallbacks}")
+
+    fetchfree_boxes = {}
+    for flag in ("device_page_box", "fused_page_box"):
+        det = detector(**{flag: True})
+        for i, page in enumerate(pages):
+            res, st, sec, launches = _watched_page(det, page)
+            total += launches
+            want_res, want_st = ref[i][0], ref[i][1]
+            # the raw path on the same box: the default run's own state,
+            # or a raw phase handed the device box
+            raw = want_st if st.page_coord == want_st.page_coord else \
+                det._device_phase_raw(*page, pre_box=(box_of(st), 0.0, 0.0,
+                                                      0.0))
+            same = (np.array_equal(raw.region_mask, st.region_mask)
+                    and np.array_equal(raw.textline_proj, st.textline_proj))
+            fetchfree_boxes.setdefault(i, []).append(st.page_coord)
+            row = {"run": flag, "page": page[1], "seconds": sec,
+                   "regions": len(res.contours), "radon_launches": launches,
+                   "page_box": st.page_coord,
+                   "host_page_box": want_st.page_coord,
+                   "masks_equal_raw_path_on_this_box": same,
+                   "xml_equal_default": _xml_body(res) == _xml_body(
+                       want_res)}
+            rows.append(row)
+            print(f"flags, {flag}, {page[1]}: {sec:.3f} s, {row['regions']} "
+                  f"regions; device box {st.page_coord}, host box "
+                  f"{want_st.page_coord}"
+                  + ("" if st.page_coord == want_st.page_coord else
+                     " (differs: DEVIATIONS #12)")
+                  + f"; region mask and row projection equal to the raw "
+                  f"path's on this box: {same}; PAGE-XML equal to the "
+                  f"default run's: {row['xml_equal_default']}", flush=True)
+            if res.degraded or not same or not res.contours:
+                raise AssertionError(f"{flag} {page[1]}: degraded, no "
+                                     "regions, or masks differ from the raw "
+                                     "path's on the same box")
+        _no_fallbacks(det, f"flags phase, {flag}")
+    for i, (headless, fused) in fetchfree_boxes.items():
+        if headless != fused:
+            raise AssertionError(f"{pages[i][1]}: the fused page box "
+                                 f"{fused} differs from the headless one "
+                                 f"{headless}")
+
+    det = detector(spec_deskew=True)
+    for i, page in enumerate(pages):
+        res, st, sec, launches = _watched_page(det, page)
+        total += launches
+        want_res, _, (w_slopes, w_profiles, w_bufs), _ = ref[i]
+        slopes, profiles, bufs = det.collected[-1]
+        if len(det.resolved) != i + 1:
+            raise AssertionError(f"spec_deskew {page[1]}: no speculative "
+                                 "dispatch was resolved (see the log)")
+        resolved = det.resolved[-1]
+        if isinstance(resolved, deskew._SpecResolved):
+            matched = sum(j >= 0 for j in resolved.mapping)
+        else:
+            matched = 0      # the page's canvas bucket is not the slots'
+        err = max((float(np.max(np.abs(a - b) / (SPEC_PROFILE_ATOL
+                                                 + SPEC_PROFILE_RTOL
+                                                 * np.abs(b))))
+                   for p, q in zip(profiles, w_profiles)
+                   for a, b in zip(p, q) if a.size), default=0.0)
+        differ = [k for k, (a, b) in enumerate(zip(bufs, w_bufs)) if a != b]
+        same_rest = (res.page_coord == want_res.page_coord
+                     and len(res.contours) == len(want_res.contours)
+                     and all(np.array_equal(a, b) for a, b in
+                             zip(res.contours, want_res.contours))
+                     and all(len(res.textlines[k]) == len(
+                         want_res.textlines[k]) and all(
+                         np.array_equal(a, b) for a, b in zip(
+                             res.textlines[k], want_res.textlines[k]))
+                             for k in range(len(res.contours))
+                             if k not in differ))
+        xml_equal = _xml_body(res) == _xml_body(want_res)
+        row = {"run": "spec_deskew", "page": page[1], "seconds": sec,
+               "regions": len(res.contours), "radon_launches": launches,
+               "matched_slots": matched,
+               "fallback_regions": len(res.contours) - matched,
+               "slopes_equal": slopes == w_slopes,
+               "profile_err_over_tolerance": err,
+               "regions_with_another_buffer": differ,
+               "rest_equal": same_rest, "xml_equal_default": xml_equal}
+        rows.append(row)
+        print(f"flags, spec_deskew, {page[1]}: {sec:.3f} s, "
+              f"{row['regions']} regions, {matched} served by speculative "
+              f"slots, {row['fallback_regions']} by the ordinary dispatch; "
+              f"slopes bit-equal to the default run's: "
+              f"{row['slopes_equal']}; profiles at most {err:.3g} of the "
+              f"tolerance (rtol {SPEC_PROFILE_RTOL:g}, atol "
+              f"{SPEC_PROFILE_ATOL:g}); regions whose crop buffer differs "
+              f"from the default run's: {differ}; PAGE-XML equal: "
+              f"{xml_equal}, equal outside those regions' lines: "
+              f"{same_rest}", flush=True)
+        if res.degraded or not row["slopes_equal"] or err > 1.0 \
+                or not same_rest or (not differ and not xml_equal):
+            raise AssertionError(f"spec_deskew {page[1]}: differs from the "
+                                 "default run")
+    _no_fallbacks(det, "flags phase, spec_deskew")
+    if not any(r.get("matched_slots") for r in rows):
+        raise AssertionError("no region was served by a speculative slot")
+
+    for i, page in enumerate(pages):
+        want_res, want_st, _, boxes = ref[i]
+        cap = max(max(b[2], b[3]) for b in boxes) - 1
+        det = detector(deskew_buf_max=cap)
+        capH, capW = det.deskew.resident_buffer_shape(
+            tuple(want_st.textline_dev.shape))
+        over = sum(1 for x, y, w, h in boxes if h > capH or w > capW)
+        res, st, sec, launches = _watched_page(det, page)
+        total += launches
+        dslope = max((abs(a - b) for a, b in zip(res.slopes,
+                                                 want_res.slopes)),
+                     default=0.0) \
+            if len(res.slopes) == len(want_res.slopes) else float("inf")
+        row = {"run": "deskew_buf_max", "page": page[1], "cap": cap,
+               "seconds": sec, "regions": len(res.contours),
+               "regions_over_cap": over, "radon_launches": launches,
+               "fallbacks": dict(det.fallbacks), "max_slope_diff": dslope}
+        rows.append(row)
+        print(f"flags, deskew_buf_max={cap}, {page[1]}: {sec:.3f} s, "
+              f"{over} of {len(boxes)} regions over the cap, fallbacks "
+              f"{row['fallbacks']}, slopes within {dslope:.4g} deg of the "
+              f"default run's (limit {SWEEP_SLOPE_LIMIT:.4g})", flush=True)
+        if res.degraded or over < 1 or row["fallbacks"] != {"host_sweep": 1} \
+                or not dslope <= SWEEP_SLOPE_LIMIT:
+            raise AssertionError(f"deskew_buf_max {page[1]}: {row}")
+    _cc_times(models.region.device, models, pages[0], ref[0][1].region_mask,
+              details)
+    details["flags"] = rows
+    return total
 
 
 def _batch_pages():
@@ -840,9 +1208,8 @@ def _regions_that_differ(res, want):
 
 def batch_phase(details, models):
     """The pipelined batch against sequential process_image on 8 A4 pages
-    (see the module docstring, phase 6). Returns the Radon launches of its
+    (see the module docstring, phase 7). Returns the Radon launches of its
     runs (a)-(d)."""
-    import dataclasses
     import threading
 
     import torch
@@ -850,15 +1217,14 @@ def batch_phase(details, models):
     from sbb_textline_detection_tpu_torch.ops import radon
     from sbb_textline_detection_tpu_torch.pipeline import stages
     from sbb_textline_detection_tpu_torch.pipeline.detector import (
-        DEFAULT_CONFIG, TextlineDetector)
+        TextlineDetector)
 
-    cfg = DEFAULT_CONFIG
+    cfg = _serve_config()
     pages = _batch_pages()
     names = [name for _, name in pages]
 
     def detector(**flags):
-        return TextlineDetector(models, dataclasses.replace(
-            cfg, runtime=dataclasses.replace(cfg.runtime, **flags)))
+        return TextlineDetector(models, _serve_config(**flags))
 
     def serve(det, batched, some=None):
         """(results, region masks, seconds, Radon launches) of the pages
@@ -919,8 +1285,8 @@ def batch_phase(details, models):
         ("a", "process_image, one after another", detector(), False),
         ("b", "process_batch, 1 worker, no page-box window",
          detector(device_phase_workers=1, page_box_batch=0), True),
-        ("c", "process_batch under DEFAULT_CONFIG (2 workers, windows of "
-         "8)", detector(), True),
+        ("c", "process_batch under the default runtime (2 workers, "
+         "windows of 8)", detector(), True),
         ("c-3-workers", "as (c), 3 workers",
          detector(device_phase_workers=3), True),
         ("c-streams", "as (c), a CUDA stream per worker",
@@ -993,16 +1359,11 @@ def batch_phase(details, models):
                         f"{p['mask_diff_share']:.3g} (limit "
                         f"{BATCH_MASK_LIMIT:g}), regions "
                         f"{p['regions']}")
-            elif not p["page_box_moved_model_px"] and not (
-                    p["rest_equal"]
-                    and p["slopes_differing"] <= BATCH_SLOPE_FLIPS
-                    and (p["xml_equal"] or p["slopes_differing"])):
+            elif not p["page_box_moved_model_px"] and not p["xml_equal"]:
                 raise AssertionError(
-                    f"({key}) {p['page']}: differs from process_image's "
-                    f"result beyond {BATCH_SLOPE_FLIPS} regions' slopes "
-                    f"and lines: {p['slopes_differing']} slopes, the rest "
-                    f"equal: {p['rest_equal']}, PAGE-XML equal: "
-                    f"{p['xml_equal']}")
+                    f"({key}) {p['page']}: PAGE-XML differs from "
+                    f"process_image's: {p['slopes_differing']} slopes "
+                    f"differ, the rest equal: {p['rest_equal']}")
     grids = {models.region.grid_for(p["page_box"][1] - p["page_box"][0],
                                     p["page_box"][3] - p["page_box"][2],
                                     cfg.tiling.margin_ratio)
@@ -1035,12 +1396,23 @@ def batch_phase(details, models):
         p["slopes_differing_from_a"] = [
             _regions_that_differ(r, w)[0]
             for r, w in zip(served[0], ref[0])]
+        p["xml_equal_to_a"] = [_xml_body(r) == _xml_body(w)
+                               for r, w in zip(served[0], ref[0])]
         print(f"batch ({key}) under torch.profiler, a warm-up page and "
               f"{BATCH_PROFILED_PAGES} pages: wall {p['wall_s']:.3f} s, "
               f"device busy {p['device_busy_s']:.3f} s (kernels and copies "
               f"add up to {p['device_sum_s']:.3f} s), idle share "
               f"{p['idle_share']:.3f}; slopes that differ from the first "
-              f"serving by (a): {p['slopes_differing_from_a']}", flush=True)
+              f"serving by (a): {p['slopes_differing_from_a']}, PAGE-XML "
+              f"equal to it: {p['xml_equal_to_a']}", flush=True)
+        # (c)'s batched page forward may move a box by a model pixel
+        same_box = [r.page_coord == w.page_coord
+                    for r, w in zip(served[0], ref[0])]
+        if not all(eq or (key == "c" and not box) for eq, box in
+                   zip(p["xml_equal_to_a"], same_box)):
+            raise AssertionError(f"({key}) served again under the profiler: "
+                                 "a PAGE-XML differs from the first serving "
+                                 "by (a)")
     a = rows[0]["pages_per_s"]
     print("batch summary, pages/s: " + ", ".join(
         f"({r['run']}) {r['pages_per_s']:.3f} ({r['pages_per_s'] / a:.2f}x)"
@@ -1137,10 +1509,10 @@ def classic_phase(dev, details):
                                                      radon_bench)
     from sbb_textline_detection_tpu_torch.pipeline import detector, stages
     from sbb_textline_detection_tpu_torch.pipeline.detector import (
-        DEFAULT_CONFIG, TextlineDetector)
+        TextlineDetector)
     from sbb_textline_detection_tpu_torch.utils import synthetic
 
-    cfg = DEFAULT_CONFIG
+    cfg = _serve_config()
     names = cfg.model_names
     out = os.path.join(ROOT, "build", "smoke_classic")
     os.makedirs(out, exist_ok=True)
@@ -1543,7 +1915,7 @@ def serve_trained_phase(dev, details, dual, random_regions):
     page.save(os.path.join(out, names.page + ".npz"))
     dual.save(os.path.join(out, names.dualhead + ".npz"))
     models = ModelBundle.from_dir(out, DEFAULT_CONFIG.runtime, dev, names)
-    det = TextlineDetector(models, DEFAULT_CONFIG)
+    det = TextlineDetector(models, _serve_config())
     img, layout = synthetic.make_page(np.random.default_rng(SEED), 3508,
                                       2480, skew_deg=SKEWS[0])
     radon.launches = 0
@@ -1636,6 +2008,7 @@ def _phases(args, dev, details, torch) -> int:
     if not args.only:
         launches += fallback_phase(details, det.models, pages[1])
     radon_busy_phase(det, pages[1], details)
+    launches += flags_phase(details, det.models, pages)
     launches += batch_phase(details, det.models)
     del det
     if not args.only:

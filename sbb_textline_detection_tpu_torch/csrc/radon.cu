@@ -54,22 +54,34 @@
 //     and stores, three per pixel, with no branch. (Hopper runs a float
 //     atomicAdd to shared memory as a compare-and-swap loop; a register
 //     window that flushed only when the bins moved diverged across
-//     angles.) The block sums its warps' rows per angle and adds each bin
-//     to the zeroed output once, with a global atomic.
+//     angles.) The block sums its warps' rows per angle in a fixed order.
+//   * Sums that do not depend on launch order: blocks run in no order, so
+//     a float atomic across blocks would round differently from launch to
+//     launch (and the scorer's thresholds can turn a last bit into another
+//     angle). Each block instead converts its per-bin sum to 64-bit fixed
+//     point (scale 2^32) and adds it with an integer atomic into a zeroed
+//     scratch of R x A x S counters; integer addition is exact in any
+//     order. A bin holds at most the canvas's whole mass, S^2 * 255 <
+//     2^31 for S <= 2048 (the largest canvas bucket), so 2^32 times it
+//     stays below 2^63. A second small kernel converts the counters to
+//     float32 (through double, then one rounding to float).
 //
 // Numerics: fy, gx and the hat arguments are rounded exactly like the f32
 // expressions of the JAX program (explicit _rn intrinsics, no FMA
-// contraction). The global atomics that combine the sub-canvases sum in an
-// order that changes from run to run, so a bin agrees with the matrix form
-// only to f32 summation error: callers compare with rtol 1e-4, atol 1e-2,
-// as the JAX package's own Pallas-vs-einsum test does.
+// contraction). A block's partial sum is rounded to a multiple of 2^-32
+// once; the output is the float32 nearest to the exact sum of those
+// partials. It agrees with the matrix form to f32 summation error (callers
+// compare with rtol 1e-4, atol 1e-2, as the JAX package's own
+// Pallas-vs-einsum test does) and is the same, bit for bit, on every
+// launch and for any number of regions in the batch.
 //
-// The C entry point zeroes the output and launches on the given stream,
-// and returns cudaGetLastError().
+// The C entry point zeroes the scratch and launches both kernels on the
+// given stream, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <climits>
 #include <cmath>
 
@@ -83,6 +95,8 @@ constexpr int kStageRows = 16;    // rows per staged tile, two tiles in flight
 constexpr int kStrip = 16;        // canvas columns per warp (16 bytes)
 constexpr int kBandCols = kWarps * kStrip;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr float kFixedScale = 4294967296.0f;             // 2^32
+constexpr double kFixedInv = 1.0 / 4294967296.0;         // 2^-32
 static_assert(kThreads == kBandRows * kBandCols / 16,
               "the emptiness test reads one 16-byte vector a thread");
 
@@ -136,7 +150,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 radon_sweep_kernel(const uint8_t* __restrict__ canvases,
                    const float* __restrict__ cosv,
                    const float* __restrict__ sinv,
-                   float* __restrict__ out, int s, int n_angles, int ta,
+                   unsigned long long* __restrict__ acc, int s,
+                   int n_angles, int ta,
                    int n_tiles, int n_rbands, int n_cbands, int width) {
   extern __shared__ __align__(16) unsigned char smem[];
   int bid = blockIdx.x;
@@ -159,7 +174,7 @@ radon_sweep_kernel(const uint8_t* __restrict__ canvases,
   const uint8_t* img = canvases + static_cast<size_t>(region) * s * s;
 
   // kThreads = kBandRows * kBandCols / 16: one vector of the sub-canvas a
-  // thread; an all-zero sub-canvas adds nothing to the zeroed output
+  // thread; an all-zero sub-canvas adds nothing to the zeroed counters
   {
     const int per_row = bw / 16;
     const int r = threadIdx.x / per_row;
@@ -296,7 +311,8 @@ radon_sweep_kernel(const uint8_t* __restrict__ canvases,
     int los[kWarps];
 #pragma unroll
     for (int v = 0; v < kWarps; ++v) los[v] = __shfl_sync(kFull, mine, v);
-    float* dst = out + (static_cast<size_t>(region) * n_angles + a0 + i) * s;
+    unsigned long long* dst =
+        acc + (static_cast<size_t>(region) * n_angles + a0 + i) * s;
     for (int t = max(tlo, 0) + lane; t < min(thi, s); t += 32) {
       float sum = 0.0f;
 #pragma unroll
@@ -305,9 +321,23 @@ radon_sweep_kernel(const uint8_t* __restrict__ canvases,
         if (los[v] != INT_MIN && idx >= 0 && idx < width)
           sum += priv[(v * 32 + i) * width + idx];
       }
-      if (sum != 0.0f) atomicAdd(dst + t, sum);
+      // 2^32 * sum is exact in float (a power-of-two scale); the
+      // conversion rounds below 2^-32
+      if (sum != 0.0f)
+        atomicAdd(dst + t, static_cast<unsigned long long>(
+                               __float2ll_rn(__fmul_rn(sum, kFixedScale))));
     }
   }
+}
+
+// out[i] = acc[i] / 2^32, as float32 (a pure function of the counter, so
+// as reproducible as it)
+__global__ void radon_fixed_to_float(const unsigned long long* __restrict__ acc,
+                                     float* __restrict__ out, size_t n) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x)
+    out[i] = static_cast<float>(
+        static_cast<double>(static_cast<long long>(acc[i])) * kFixedInv);
 }
 
 struct Plan {
@@ -342,21 +372,29 @@ Plan plan(int n_angles, int s) {
 }  // namespace
 
 // canvases: (R, S, S) uint8, 16-byte aligned, S % 16 == 0
-// cosv, sinv: (A,) float32; out: (R * A, S) float32, row r * A + a
-extern "C" int radon_sweep_launch(const void* canvases, const void* cosv,
-                                  const void* sinv, void* out, int n_regions,
-                                  int n_angles, int s, void* stream) {
+// cosv, sinv: (A,) float32; out: (R * A, S) float32, row r * A + a;
+// scratch: (R * A * S) 64-bit counters, 8-byte aligned (zeroed here)
+extern "C" int radon_sweep_fixed_launch(const void* canvases, const void* cosv,
+                                        const void* sinv, void* out,
+                                        void* scratch, int n_regions,
+                                        int n_angles, int s, void* stream) {
   if (n_regions <= 0 || n_angles <= 0) return 0;
   const Plan p = plan(n_angles, s);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = cudaMemsetAsync(
-      out, 0, static_cast<size_t>(n_regions) * n_angles * s * sizeof(float),
-      st);
+  const size_t n = static_cast<size_t>(n_regions) * n_angles * s;
+  auto* acc = static_cast<unsigned long long*>(scratch);
+  const cudaError_t err = cudaMemsetAsync(acc, 0, n * sizeof(*acc), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   radon_sweep_kernel<<<n_regions * p.n_tiles * p.n_rbands * p.n_cbands,
                        kThreads, p.smem, st>>>(
       static_cast<const uint8_t*>(canvases), static_cast<const float*>(cosv),
-      static_cast<const float*>(sinv), static_cast<float*>(out), s, n_angles,
-      p.ta, p.n_tiles, p.n_rbands, p.n_cbands, p.width);
+      static_cast<const float*>(sinv), acc, s, n_angles, p.ta, p.n_tiles,
+      p.n_rbands, p.n_cbands, p.width);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess) return static_cast<int>(launched);
+  const int threads = 256;
+  const size_t blocks = std::min<size_t>((n + threads - 1) / threads, 4096);
+  radon_fixed_to_float<<<static_cast<unsigned>(blocks), threads, 0, st>>>(
+      acc, static_cast<float*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }

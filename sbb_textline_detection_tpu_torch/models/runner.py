@@ -21,7 +21,19 @@ TextlineDetector's paths run).
         padded crop; `predict_dual_tiled_multi`: the same for K page
         crops of one tile grid at once;
   * `predict_tiled`: the same tiling for one model alone (the separate
-    per-model path).
+    per-model path);
+  * the fetch-free page box: `page_box_dev` (page forward, dilate, largest
+    device component, upscale index math: a (1, 5) int32 device tensor),
+    and the raw form fed by it (`predict_dual_tiled_resident_raw_headless`)
+    or by the page forward run inline on the resident raw page
+    (`predict_dual_tiled_resident_raw_fullfused`). The JAX program runs
+    the grid of the whole working page because the box is unknown when it
+    is dispatched; the port reads the five ints back (one small copy) and
+    runs the box-sized grid, so every chunk holds the tiles it holds on
+    the raw path and the values equal that path's;
+  * `predict_dual_tiled_resident_raw(defer_fetch=True)`: the raw form's
+    outputs left on the device (`DeferredFusedRaw`), for the speculative
+    deskew to read before the host takes the region mask.
 
 Float32 modules run inside `ops/precision.full_f32` (no TF32). Every
 entry point is a `utils/stagetime.device_section`, and every forward adds
@@ -44,6 +56,7 @@ import torch
 from sbb_textline_detection_tpu_torch.core.config import RuntimeConfig
 from sbb_textline_detection_tpu_torch.models import checkpoint, registry
 from sbb_textline_detection_tpu_torch.models.registry import ModelSpec
+from sbb_textline_detection_tpu_torch.ops import cc as cc_ops
 from sbb_textline_detection_tpu_torch.ops import morphology, precision
 from sbb_textline_detection_tpu_torch.ops import resize as resize_ops
 from sbb_textline_detection_tpu_torch.ops import threshold
@@ -84,6 +97,87 @@ def _binarized_plane(batch: torch.Tensor, tb: torch.Tensor):
     plane = batch[..., 0] if batch.ndim == 4 else batch
     return plane, (plane.to(torch.int32) > tb[:, None, None]).to(
         torch.float32)
+
+
+class DeferredFusedRaw:
+    """The single-page raw form's outputs, still on the device
+    (predict_dual_tiled_resident_raw(defer_fetch=True); counterpart of the
+    JAX package's DeferredFusedRaw): the shaped region canvas
+    (`region_dev`, (big_h, big_w) 0/1 uint8, the crop at its top-left
+    (crop_h, crop_w)), the textline canvas (`textline_dev`) and its
+    crop-masked row sum. Made right behind the fused work: the region
+    crop and the row sum start their copy to the host at once (into
+    pinned memory, with an event), so that work enqueued after this
+    handle (the speculative deskew chain) does not delay them; fetch()
+    waits for that copy only."""
+
+    def __init__(self, region_dev: torch.Tensor, textline_dev: torch.Tensor,
+                 crop_hw: Tuple[int, int]):
+        self.region_dev = region_dev
+        self.textline_dev = textline_dev
+        self.crop_hw = crop_hw
+        bh, bw = crop_hw
+        rowsum = textline_dev[:bh, :bw].sum(1, dtype=torch.int32)
+        self._host = [_to_host_async(t) for t in (region_dev[:bh, :bw],
+                                                  rowsum)]
+        self._event = None
+        if region_dev.device.type == "cuda":
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    @property
+    def big_hw(self) -> Tuple[int, int]:
+        return tuple(self.region_dev.shape)
+
+    def fetch(self):
+        """(region_mask, row_projection, textline canvas on the device):
+        the tuple the non-deferred call returns."""
+        if self._event is not None:
+            self._event.synchronize()
+        region, rowsum = (t.numpy() for t in self._host)
+        return region, rowsum, self.textline_dev
+
+
+def _to_host_async(t: torch.Tensor) -> torch.Tensor:
+    """Start copying `t` to pinned host memory without waiting (a plain
+    copy on the CPU)."""
+    if t.device.type != "cuda":
+        return t.clone()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    return out
+
+
+def _page_box_from_small(page: "SegmentationModel", small: torch.Tensor,
+                         th: int, tw: int) -> torch.Tensor:
+    """Page forward and the whole border-box decision on the device
+    (runner.py:127-166 of the JAX package): argmax, 3x3 dilate, largest
+    pixel-count component (DEVIATIONS.md #12), its box mapped through the
+    exact nearest-upscale index math to the (th, tw) working page.
+    `small`: (mh, mw, 3) uint8 on the device. Returns (1, 5) int32
+    [[by, bx, h, w, valid]]; an empty mask gives the whole page with the
+    reference's shape quirk, [0, 0, th - 1, tw - 1, 0]."""
+    x = small[None].to(torch.float32) / 255.0
+    labels = torch.argmax(page._logits(x.permute(0, 3, 1, 2))[0], 0)
+    mh, mw = labels.shape
+    dil = morphology.dilate((labels != 0).to(torch.uint8), 3, 1)
+    box, valid = cc_ops.largest_component_box(dil)
+    bx, by, bw, bh = (box[i].to(torch.int64) for i in range(4))
+
+    def ceil_div(a, b):
+        return -torch.div(-a, b, rounding_mode="floor")
+
+    # working pixels whose nearest source index is j span
+    # [ceil(j*W/mw), ceil((j+1)*W/mw) - 1]
+    x0 = ceil_div(bx * tw, mw)
+    x1 = ceil_div((bx + bw) * tw, mw) - 1
+    y0 = ceil_div(by * th, mh)
+    y1 = ceil_div((by + bh) * th, mh) - 1
+    found = torch.stack([y0, x0, (y1 - y0 + 1).clamp(min=1),
+                         (x1 - x0 + 1).clamp(min=1), torch.ones_like(y0)])
+    whole = torch.tensor([0, 0, th - 1, tw - 1, 0], dtype=torch.int64,
+                         device=small.device)
+    return torch.where(valid, found, whole).to(torch.int32)[None]
 
 
 def _device_entry(fn):
@@ -199,6 +293,21 @@ class SegmentationModel:
         return self.predict_smalls_prescaled_batch(np.stack([
             resize_ops.resize_nearest_host(np.asarray(im), mh, mw)
             for im in imgs_u8]))
+
+    @_device_entry
+    def page_box_dev(self, small_u8: np.ndarray, target_h: int,
+                     target_w: int) -> torch.Tensor:
+        """The page forward and the border-box decision on the device: a
+        (1, 5) int32 device tensor [[by, bx, h, w, valid]] in (target_h,
+        target_w) working coordinates, with no fetch. Box semantics of
+        stages._page_box_model_res, with pixel-count component areas
+        (DEVIATIONS.md #12)."""
+        mh, mw = self.input_hw
+        if small_u8.shape[:2] != (mh, mw):
+            raise ValueError(f"expected {(mh, mw)} input, got "
+                             f"{small_u8.shape[:2]}")
+        return _page_box_from_small(self, self._to_device(small_u8),
+                                    int(target_h), int(target_w))
 
     # -- geometry ----------------------------------------------------------
     def _stride(self, margin_ratio: float) -> Tuple[int, int, int]:
@@ -429,22 +538,15 @@ class SegmentationModel:
                                  post_morph)
         return out[:h, :w].cpu().numpy()
 
-    def _dual_tiled(self, other: "SegmentationModel", canvases, boxes,
-                    margin_ratio, morph, mask_class, post_morph,
-                    return_device_textline: bool, textline_projection: bool,
-                    valid=None):
+    def _dual_tiled_device(self, other: "SegmentationModel", canvases,
+                           boxes, margin_ratio, morph, mask_class,
+                           post_morph, valid=None):
         """Fused region + textline segmentation of K canvases (see
-        _tile_labels). Per page: (region, textline labels) on the host,
-        plus the textline canvas on the device with
-        `return_device_textline`; with `textline_projection` the textline
-        canvas does not cross to the host and the crop-masked row sum
-        (int32, what reading order consumes, main.py:1809-1822) stands in
-        its place."""
+        _tile_labels), left on the device: per page (the shaped region
+        canvas, the textline canvas), each (ny * stride_h, nx * stride_w)
+        with the page crop at its top-left."""
         if self.input_hw != other.input_hw:
             raise ValueError("dual tiled predict needs identical geometry")
-        if textline_projection and not return_device_textline:
-            raise ValueError("textline_projection requires "
-                             "return_device_textline")
         grids = {self.grid_for(int(b[2]), int(b[3]), margin_ratio)
                  for b in boxes}
         if len(grids) != 1:
@@ -457,13 +559,31 @@ class SegmentationModel:
         canvas_r, canvas_t = self._tile_labels(
             canvases, boxes, ny, nx, margin_ratio,
             lambda batch, tb: self._forward_pair(other, batch, tb), valid)
+        return [(self._shape_labels(canvas_r[i], int(bh), int(bw), morph,
+                                    mask_class, post_morph), canvas_t[i])
+                for i, (_, _, bh, bw) in enumerate(boxes)]
+
+    def _dual_tiled(self, other: "SegmentationModel", canvases, boxes,
+                    margin_ratio, morph, mask_class, post_morph,
+                    return_device_textline: bool, textline_projection: bool,
+                    valid=None):
+        """Fused region + textline segmentation of K canvases (see
+        _tile_labels). Per page: (region, textline labels) on the host,
+        plus the textline canvas on the device with
+        `return_device_textline`; with `textline_projection` the textline
+        canvas does not cross to the host and the crop-masked row sum
+        (int32, what reading order consumes, main.py:1809-1822) stands in
+        its place."""
+        if textline_projection and not return_device_textline:
+            raise ValueError("textline_projection requires "
+                             "return_device_textline")
+        pages = self._dual_tiled_device(other, canvases, boxes,
+                                        margin_ratio, morph, mask_class,
+                                        post_morph, valid)
         out = []
-        for i, (_, _, bh, bw) in enumerate(boxes):
+        for (region, tl), (_, _, bh, bw) in zip(pages, boxes):
             bh, bw = int(bh), int(bw)
-            region = self._shape_labels(canvas_r[i], bh, bw, morph,
-                                        mask_class, post_morph)
             region = region[:bh, :bw].cpu().numpy()
-            tl = canvas_t[i]
             if textline_projection:
                 rowsum = tl[:bh, :bw].sum(1, dtype=torch.int32)
                 out.append((region, rowsum.cpu().numpy(), tl))
@@ -547,7 +667,8 @@ class SegmentationModel:
                                         post_morph: Optional[MorphSpec] = None,
                                         return_device_textline: bool = False,
                                         raw_hws=None,
-                                        textline_projection: bool = False):
+                                        textline_projection: bool = False,
+                                        defer_fetch: bool = False):
         """predict_dual_tiled_resident reading K resident raw pages
         (upload_raw, one plane or RGB): each working canvas is gathered on
         the device through the exact nearest index maps. `boxes`: per page
@@ -555,25 +676,48 @@ class SegmentationModel:
         page working (h, w), all equal; `raw_hws`: the original page dims
         before upload_raw's padding. `other` is the textline model: `self`
         for the dual-head model, else the classic textline model of the
-        same tile size."""
+        same tile size. With `defer_fetch` (one page, a class mask and the
+        projection mode) the result is a DeferredFusedRaw whose fetch()
+        returns the page's tuple."""
         k = len(raws)
         boxes = np.asarray(boxes, np.int32).reshape(k, 4)
         if len({tuple(s) for s in scaled_hws}) != 1:
             raise ValueError("pages span multiple working sizes; group "
                              "before fusing")
-        th, tw = scaled_hws[0]
         if len({tuple(r.shape) for r in raws}) != 1:
             raise ValueError("raw shapes differ")
         if raw_hws is None:
             raw_hws = [tuple(r.shape[:2]) for r in raws]
         if len({tuple(s) for s in raw_hws}) != 1:
             raise ValueError("pages span multiple raw sizes; group first")
-        raw_h, raw_w = raw_hws[0]
+        canvases, valid = self._raw_canvases(raws, scaled_hws[0], raw_hws[0],
+                                             margin_ratio)
+        if defer_fetch:
+            if k != 1 or mask_class is None or not (
+                    return_device_textline and textline_projection):
+                raise ValueError("defer_fetch is for one page in the "
+                                 "projection mode with a class mask")
+            (region, tl), = self._dual_tiled_device(
+                other, canvases, boxes, margin_ratio, morph, mask_class,
+                post_morph, valid)
+            return DeferredFusedRaw(region, tl, (int(boxes[0, 2]),
+                                                 int(boxes[0, 3])))
+        return self._dual_tiled(other, canvases, boxes, margin_ratio, morph,
+                                mask_class, post_morph,
+                                return_device_textline, textline_projection,
+                                valid)
+
+    def _raw_canvases(self, raws, scaled_hw, raw_hw, margin_ratio):
+        """The working canvases of resident raw pages of one shape, gathered
+        on the device through the exact nearest index maps (stages.
+        scale_image's resize, main.py:196-214), and the (ch, cw) bool map
+        of the canvas pixels that hold page data."""
+        th, tw = scaled_hw
+        raw_h, raw_w = raw_hw
         pad_h, pad_w = raws[0].shape[:2]
         margin = self._stride(margin_ratio)[0]
         ch, cw = self.canvas_shape_for(th, tw, margin_ratio)
         dev = self.device
-
         # canvas row i -> raw row (or -1 = white): margin offset baked in
         iy = np.full(ch, -1, np.int64)
         ix = np.full(cw, -1, np.int64)
@@ -584,12 +728,76 @@ class SegmentationModel:
         valid = (iy_t[:, None] >= 0) & (ix_t[None, :] >= 0)
         rows = iy_t.clamp(0, pad_h - 1)
         cols = ix_t.clamp(0, pad_w - 1)
-        canvases = [raw.index_select(0, rows).index_select(1, cols)
-                    for raw in raws]
-        return self._dual_tiled(other, canvases, boxes, margin_ratio, morph,
-                                mask_class, post_morph,
-                                return_device_textline, textline_projection,
-                                valid)
+        return [raw.index_select(0, rows).index_select(1, cols)
+                for raw in raws], valid
+
+    def _raw_from_box(self, other, raw, box5, scaled_hw, margin_ratio, morph,
+                      mask_class, post_morph, raw_hw):
+        """The raw form of one page from a device box5 [[by, bx, h, w,
+        valid]]: the five ints are read back (one small copy), and the
+        page runs the box-sized grid of the raw path (so its chunks hold
+        the raw path's tiles). Returns (region_mask, row_projection,
+        textline canvas on the device, box5 as a host int32 array)."""
+        if mask_class is None:
+            raise ValueError("the fetch-free forms need mask_class")
+        if tuple(box5.shape) != (1, 5):
+            raise ValueError(f"box5 must be (1, 5), got {tuple(box5.shape)}")
+        b = box5.cpu().numpy().reshape(5).astype(np.int32)
+        if raw_hw is None:
+            raw_hw = tuple(raw.shape[:2])
+        canvases, valid = self._raw_canvases([raw], scaled_hw, raw_hw,
+                                             margin_ratio)
+        region, proj, tl = self._dual_tiled(
+            other, canvases, b[None, :4], margin_ratio, morph, mask_class,
+            post_morph, True, True, valid)[0]
+        return region, proj, tl, b
+
+    @_device_entry
+    def predict_dual_tiled_resident_raw_headless(
+            self, other: "SegmentationModel", raw, boxes5_dev,
+            scaled_hw, margin_ratio: float = 0.1,
+            morph: Optional[MorphSpec] = None,
+            mask_class: Optional[int] = None,
+            post_morph: Optional[MorphSpec] = None,
+            raw_hw=None):
+        """predict_dual_tiled_resident_raw of one resident raw page with
+        its page box as a device input (page_box_dev's (1, 5) result), in
+        the projection mode with a class mask. Returns (region_mask,
+        row_projection, textline canvas on the device, box5) with box5
+        the host [by, bx, h, w, valid] (runner.py:1028-1094 of the JAX
+        package; see _raw_from_box on the grid)."""
+        return self._raw_from_box(other, raw, boxes5_dev, scaled_hw,
+                                  margin_ratio, morph, mask_class,
+                                  post_morph, raw_hw)
+
+    @_device_entry
+    def predict_dual_tiled_resident_raw_fullfused(
+            self, other: "SegmentationModel", page: "SegmentationModel",
+            raw, small_ys, small_xs, scaled_hw, margin_ratio: float = 0.1,
+            morph: Optional[MorphSpec] = None,
+            mask_class: Optional[int] = None,
+            post_morph: Optional[MorphSpec] = None,
+            raw_hw=None):
+        """The page's whole device phase from its resident raw page: the
+        page model's input is gathered on the device (`small_ys` /
+        `small_xs`, the composed two-stage nearest index maps of ops/
+        resize.compose_nearest_indices; a one-plane page is repeated to 3
+        channels), the page forward and box decision run there
+        (_page_box_from_small), and the box feeds the fused segmentation.
+        Returns what predict_dual_tiled_resident_raw_headless returns
+        (runner.py:1096-1164 of the JAX package)."""
+        pmh, pmw = page.input_hw
+        ys = torch.from_numpy(np.asarray(small_ys, np.int64).reshape(pmh)
+                              ).to(raw.device)
+        xs = torch.from_numpy(np.asarray(small_xs, np.int64).reshape(pmw)
+                              ).to(raw.device)
+        small = raw.index_select(0, ys).index_select(1, xs)
+        if small.ndim == 2:
+            small = small[..., None].expand(pmh, pmw, 3)
+        th, tw = scaled_hw
+        box5 = _page_box_from_small(page, small, int(th), int(tw))
+        return self._raw_from_box(other, raw, box5, scaled_hw, margin_ratio,
+                                  morph, mask_class, post_morph, raw_hw)
 
 
 class ModelBundle:

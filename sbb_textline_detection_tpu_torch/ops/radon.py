@@ -12,7 +12,10 @@ region x angle product (region i, angle j of A):
 with c = S//2. The plain version is that matrix form (two f32 batched
 matmuls with TF32 off, then the anti-diagonal sum), `_PLAIN_CHUNK` pairs
 at a time. The kernel computes the same sums straight from each set pixel
-without building A or B (see the note in csrc/radon.cu).
+without building A or B (see the note in csrc/radon.cu); it adds its
+blocks' partial sums in 64-bit fixed point, so its output is the same bit
+for bit on every launch, as the Pallas kernel's (whose grid runs in
+order) is.
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
 kernel or raise. The kernel is compiled from the package sources with nvcc
@@ -93,10 +96,10 @@ def _library():
             if _lib is None:
                 lib = ctypes.CDLL(build())
                 vp = ctypes.c_void_p
-                lib.radon_sweep_launch.argtypes = [
-                    vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    vp]
-                lib.radon_sweep_launch.restype = ctypes.c_int
+                lib.radon_sweep_fixed_launch.argtypes = [
+                    vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, vp]
+                lib.radon_sweep_fixed_launch.restype = ctypes.c_int
                 _lib = lib
     return _lib
 
@@ -143,7 +146,9 @@ def radon_pairs_plain(canvases: torch.Tensor, cosv: torch.Tensor,
 def radon_pairs_cuda(canvases: torch.Tensor, cosv: torch.Tensor,
                      sinv: torch.Tensor) -> torch.Tensor:
     """Launch csrc/radon.cu on the canvases' device and its current
-    stream over the full region x angle product."""
+    stream over the full region x angle product. The kernel's fixed-point
+    counters (8 bytes per output value) are allocated here, on that
+    stream."""
     global launches
     if canvases.dtype != torch.uint8 or canvases.ndim != 3 \
             or canvases.shape[1] != canvases.shape[2]:
@@ -167,10 +172,12 @@ def radon_pairs_cuda(canvases: torch.Tensor, cosv: torch.Tensor,
         return out
     lib = _library()
     with torch.cuda.device(dev):
+        scratch = torch.empty(out.numel(), dtype=torch.int64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.radon_sweep_launch(canvases.data_ptr(), cosv.data_ptr(),
-                                     sinv.data_ptr(), out.data_ptr(),
-                                     n_regions, n_angles, s, stream)
+        err = lib.radon_sweep_fixed_launch(
+            canvases.data_ptr(), cosv.data_ptr(), sinv.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), n_regions, n_angles, s,
+            stream)
     if err != 0:
         raise RuntimeError(f"radon_pairs kernel launch failed: CUDA error "
                            f"{err}")

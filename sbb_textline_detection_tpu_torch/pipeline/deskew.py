@@ -16,10 +16,28 @@ group: [slope | row profile | col profile] per slot.
 
 The chain's values do not depend on the slot count B or on the crop
 buffer's height (the JAX package's _resident_chain docstring), so eager
-PyTorch sizes each group's buffer to its largest crop rounded up to 256:
-there is no buffer cap and no "region exceeds the buffer" exit. The row
-and column profiles are rounded at the buffer's half width / half height
-(the shear-bin offset K), as in the JAX program.
+PyTorch sizes each group's buffer to its largest crop rounded up to 256.
+The reference's cap stays: a region taller or wider than
+`resident_buffer_shape` (the canvas rounded up to 256, at most `buf_max`,
+runtime.deskew_buf_max) raises ValueError where the reference raises, and
+the page takes the host sweep. The row and column profiles are rounded at
+the buffer's half width / half height (the shear-bin offset K), as in the
+JAX program.
+
+Speculative chain (runtime.spec_deskew). Dispatched right behind the
+fused segmentation, before the host has the region mask: the region
+boxes come from the device (ops/cc.component_boxes_topk on the region
+canvas, with pixel-count areas, DEVIATIONS #12), their canvas index maps
+are computed on the device (_canvas_maps_graph), and the same chain runs
+on `deskew_spec_slots` slots at the largest canvas bucket and one crop
+buffer (spec_buffer_shape). The host then matches its contour boxes
+against the device boxes BY VALUE (spec_finalize): a slot is used only
+for an identical box on the same canvas bucket whose maps equal the host
+maps, which makes its slope bit-equal to the ordinary chain's (the Radon
+kernel's sums do not depend on the batch, nor on launch order); every
+other region goes to an ordinary dispatch. A slot's profiles are rounded
+at its own buffer's K, so they agree with the ordinary chain's to f32
+rounding where the two buffers differ.
 
 Host sweep (`DeskewEngine.best_angles`). The host renders each region's
 eroded crop into an S x S uint8 canvas (`_canvas_into`, the same index
@@ -39,6 +57,7 @@ import numpy as np
 import torch
 
 from sbb_textline_detection_tpu_torch.core.config import DeskewConfig
+from sbb_textline_detection_tpu_torch.ops import cc as cc_ops
 from sbb_textline_detection_tpu_torch.ops import (morphology, precision,
                                                  profiles, radon)
 from sbb_textline_detection_tpu_torch.utils import stagetime
@@ -162,28 +181,32 @@ def _hat_projection_rows(m: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
 def _resident_chain(mask, boxes, cy, cx, angles, *, B, ac_n, s, cfg,
                     erode_eff, morph_k, bufH, bufW):
     """The per-group device chain. `mask`: (H, W) uint8 textline canvas on
-    the device; `boxes`: (B, 4) int [y, x, h, w] (zero rows = empty slots);
-    `cy`/`cx`: (B, s) canvas index maps; `angles`: (A,) float32, the coarse
-    range first. Returns (B, 1 + bufH + bufW) float32 [slope | row profile
-    | col profile]."""
+    the device; `boxes`: (B, 4) int [y, x, h, w] (zero rows = empty
+    slots), host array or device tensor; `cy`/`cx`: (B, s) canvas index
+    maps, the same; `angles`: (A,) float32, the coarse range first.
+    Returns (B, 1 + bufH + bufW) float32 [slope | row profile | col
+    profile]."""
     dev = mask.device
-    boxes = np.asarray(boxes, np.int64).reshape(B, 4)
+    boxes = torch.as_tensor(boxes, device=dev).to(torch.int64).reshape(B, 4)
     a_all = int(angles.shape[0])
     binm = (mask != 0).to(torch.uint8)
     H, W = binm.shape
+    hs, ws = boxes[:, 2], boxes[:, 3]
+    ar_h = torch.arange(bufH, device=dev)
+    ar_w = torch.arange(bufW, device=dev)
+    inside = ((ar_h[None, :, None] < hs[:, None, None])
+              & (ar_w[None, None, :] < ws[:, None, None]))
     # crop at origin; out-of-crop = 1 (erode neutral, main.py:1734
     # semantics); in-box pixels beyond the canvas read 0
-    crops = torch.ones((B, bufH, bufW), dtype=torch.uint8, device=dev)
-    for i, (y, x, h, w) in enumerate(boxes):
-        if h <= 0 or w <= 0:
-            continue
-        crops[i, :h, :w] = 0
-        sub = binm[y:min(y + h, H), x:min(x + w, W)]
-        crops[i, :sub.shape[0], :sub.shape[1]] = sub
+    ys = boxes[:, :1] + ar_h                           # (B, bufH)
+    xs = boxes[:, 1:2] + ar_w                          # (B, bufW)
+    on = inside & (ys < H)[:, :, None] & (xs < W)[:, None, :]
+    vals = binm[ys.clamp(max=H - 1)[:, :, None], xs.clamp(max=W - 1)[:, None]]
+    crops = torch.where(on, vals, (~inside).to(torch.uint8))
     e2 = _min_sep_u8(crops, erode_eff)
 
-    cy_t = torch.from_numpy(np.asarray(cy, np.int64)).to(dev)
-    cx_t = torch.from_numpy(np.asarray(cx, np.int64)).to(dev)
+    cy_t = torch.as_tensor(cy, device=dev).to(torch.int64)
+    cx_t = torch.as_tensor(cx, device=dev).to(torch.int64)
     slot = torch.arange(B, device=dev)[:, None, None]
     canv = e2[slot, cy_t.clamp(0, bufH - 1)[:, :, None],
               cx_t.clamp(0, bufW - 1)[:, None, :]]
@@ -216,13 +239,6 @@ def _resident_chain(mask, boxes, cy, cx, angles, *, B, ac_n, s, cfg,
     final = torch.where(torch.abs(raw) > cfg.slope_reject_abs,
                         torch.zeros_like(raw), raw).to(torch.float32)
 
-    hs = torch.from_numpy(boxes[:, 2]).to(dev)
-    ws = torch.from_numpy(boxes[:, 3]).to(dev)
-    inside = ((torch.arange(bufH, device=dev)[None, :, None]
-               < hs[:, None, None])
-              & (torch.arange(bufW, device=dev)[None, None, :]
-                 < ws[:, None, None]))
-
     def insided(x, fill):
         return torch.where(inside, x, torch.full_like(x, fill))
 
@@ -245,6 +261,87 @@ def _resident_chain(mask, boxes, cy, cx, angles, *, B, ac_n, s, cfg,
     return torch.cat([final[:, None], p1, p0], dim=1)
 
 
+def _canvas_maps_graph(h: torch.Tensor, w: torch.Tensor, s: int,
+                       target_table: torch.Tensor):
+    """_canvas_index_maps on the device for (B,) crop heights and widths
+    (deskew.py:350-374 of the JAX package): (B, s) int64 maps cy, cx, the
+    crop row / column rendered at each canvas row / column (-1 = blank).
+    `target_table[m] = int(m * pad_factor)` is built on the host, so the
+    downscale trigger is exact; the downscale indices are the same integer
+    floors."""
+    h, w = h.to(torch.int64), w.to(torch.int64)
+    mx = torch.maximum(h, w).clamp(0, target_table.shape[0] - 1)
+    target = target_table[mx].to(torch.int64).clamp(min=1)
+    down = target > s
+    nh = torch.where(down, torch.div(h * s, target, rounding_mode="floor"
+                                     ).clamp(min=1), h)
+    nw = torch.where(down, torch.div(w * s, target, rounding_mode="floor"
+                                     ).clamp(min=1), w)
+    i = torch.arange(s, device=h.device)
+
+    def axis_map(n, d):
+        j = i[None, :] - (s // 2 - torch.div(n, 2, rounding_mode="floor")
+                          )[:, None]
+        src = torch.div(j * d[:, None], n.clamp(min=1)[:, None],
+                        rounding_mode="floor").clamp(min=0)
+        src = torch.minimum(src, (d - 1).clamp(min=0)[:, None])
+        ok = (j >= 0) & (j < n[:, None]) & (d[:, None] > 0)
+        return torch.where(ok, src, torch.full_like(src, -1))
+
+    return axis_map(nh, h), axis_map(nw, w)
+
+
+def _canvas_maps_graph_host(h: int, w: int, s: int, pad_factor: float
+                            ) -> Tuple[np.ndarray, np.ndarray]:
+    """Numpy twin of _canvas_maps_graph: what the speculative chain
+    renders for an (h, w) crop. spec_finalize holds it against
+    _canvas_index_maps per matched region (equal by construction today;
+    the check guards against either drifting)."""
+    target = max(int(max(h, w) * pad_factor), 1)
+    if target > s:
+        nh = max(1, (h * s) // target)
+        nw = max(1, (w * s) // target)
+    else:
+        nh, nw = h, w
+
+    def axis_map(n, d):
+        out = np.full(s, -1, np.int32)
+        j = np.arange(s, dtype=np.int64) - (s // 2 - n // 2)
+        ok = (j >= 0) & (j < n) & (d > 0)
+        src = np.clip((j * d) // max(n, 1), 0, max(d - 1, 0))
+        out[ok] = src[ok]
+        return out
+
+    return axis_map(nh, h), axis_map(nw, w)
+
+
+class _SpecPending:
+    """One speculative dispatch: its output rows [box5 | slope | row
+    profile | col profile] stay on the device until spec_finalize."""
+
+    def __init__(self, out_dev, s, bufH, bufW, slots, mask_dev):
+        self.out_dev = out_dev
+        self.s = s
+        self.bufH = bufH
+        self.bufW = bufW
+        self.slots = slots
+        self.mask_dev = mask_dev
+
+
+class _SpecResolved:
+    """spec_finalize's result, for resident_collect: per region its slot
+    in the fetched speculative output, or -1, and the ordinary dispatch
+    (or None) that serves the regions without a slot."""
+
+    def __init__(self, pending: _SpecPending, out, mapping, boxes_xywh,
+                 fallback):
+        self.pending = pending
+        self.out = out                    # (slots, 6 + bufH + bufW)
+        self.mapping = mapping
+        self.boxes = boxes_xywh
+        self.fallback = fallback
+
+
 class DeskewEngine:
     """Deskew sweeps on `device`: one chain of device work per group of
     regions (resident_dispatch / resident_collect), or batched sweeps of
@@ -252,8 +349,12 @@ class DeskewEngine:
 
     def __init__(self, cfg: DeskewConfig = DeskewConfig(),
                  max_canvas: int = 2048, region_batch: int = 8, morph_kernel: int = 5,
-                 crop_erode_iterations: int = 2, device="cuda"):
+                 crop_erode_iterations: int = 2, device="cuda",
+                 buf_max: int = 2816):
         self.cfg = cfg
+        # the largest crop side the resident chain takes (resident_buffer_
+        # shape); larger regions raise, and the host sweep serves the page
+        self.buf_max = buf_max
         # where best_angles uploads its canvases; the resident chain runs
         # where its textline canvas lies
         self.device = torch.device(device)
@@ -419,15 +520,33 @@ class DeskewEngine:
         bw = max(b[2] for b in group)
         return -(-bh // 256) * 256, -(-bw // 256) * 256
 
+    def resident_buffer_shape(self, mask_shape) -> Tuple[int, int]:
+        """The largest crop (h, w) the chain takes from a canvas of
+        `mask_shape`: its sides rounded up to 256, at most buf_max (the
+        reference's static buffer, deskew.py:838-841)."""
+        H, W = mask_shape
+        return (min(-(-H // 256) * 256, self.buf_max),
+                min(-(-W // 256) * 256, self.buf_max))
+
+    def _check_cap(self, mask_shape, boxes_xywh) -> None:
+        capH, capW = self.resident_buffer_shape(mask_shape)
+        for x, y, w, h in boxes_xywh:
+            if h > capH or w > capW:
+                raise ValueError(
+                    f"region {h}x{w} exceeds the resident deskew buffer "
+                    f"{capH}x{capW}; host path required")
+
     @torch.no_grad()
     def resident_dispatch(self, mask_dev: torch.Tensor, boxes_xywh):
         """Enqueue the chain for every group of regions; returns a handle
         for resident_collect. `boxes_xywh`: per region (x, y, w, h) in the
-        textline canvas."""
+        textline canvas. Raises ValueError when a region exceeds
+        resident_buffer_shape (the caller falls back to the host sweep)."""
         boxes_xywh = [list(map(int, b)) for b in boxes_xywh]
         n = len(boxes_xywh)
         if n == 0:
             return []
+        self._check_cap(tuple(mask_dev.shape), boxes_xywh)
         s = self._bucket_for_sizes([(b[3], b[2]) for b in boxes_xywh])
         angles = torch.from_numpy(np.concatenate(
             [self._coarse, self._vertical])).to(mask_dev.device)
@@ -461,9 +580,12 @@ class DeskewEngine:
         return pending
 
     def resident_collect(self, pending):
-        """(slopes, profiles) of resident_dispatch's groups: slopes are
-        final (vertical re-sweep + reject applied); profiles[i] =
-        (row_profile[:h], col_profile[:w]) float32."""
+        """(slopes, profiles) of resident_dispatch's groups, or of a
+        spec_finalize resolution: slopes are final (vertical re-sweep +
+        reject applied); profiles[i] = (row_profile[:h], col_profile[:w])
+        float32."""
+        if isinstance(pending, _SpecResolved):
+            return self._spec_collect(pending)
         slopes: List[float] = []
         profiles_out = []
         for out_dev, group, bufH in pending:
@@ -473,4 +595,126 @@ class DeskewEngine:
                 slopes.append(float(out[i, 0]))
                 profiles_out.append((out[i, 1:1 + h],
                                      out[i, 1 + bufH:1 + bufH + w]))
+        return slopes, profiles_out
+
+    # -- speculative chain -----------------------------------------------------
+    def spec_canvas(self) -> int:
+        """The speculative sweep's canvas bucket: the largest the engine
+        can pick. A page whose regions pick a smaller one falls back as a
+        whole (scores depend on the canvas)."""
+        return next((b for b in reversed(_BUCKETS) if b <= self.max_canvas),
+                    self.max_canvas)
+
+    def spec_buffer_shape(self, mask_shape) -> Tuple[int, int]:
+        """The speculative chain's one crop buffer (it runs before the
+        region sizes are known): resident_buffer_shape with the height
+        capped at 1024; taller regions take the ordinary dispatch."""
+        capH, capW = self.resident_buffer_shape(mask_shape)
+        return min(1024, capH), capW
+
+    @torch.no_grad()
+    def spec_dispatch(self, region_dev: torch.Tensor, mask_dev: torch.Tensor,
+                      crop_hw, min_area: float, max_area: float,
+                      slots: int = 16) -> _SpecPending:
+        """Enqueue the speculative chain behind the fused segmentation that
+        made `region_dev` (the shaped 0/1 region canvas, the page crop
+        `crop_hw` at its top-left) and `mask_dev` (the textline canvas of
+        the same shape): the first `slots` region components of the crop
+        whose pixel count lies in [min_area, max_area] (permissive bounds,
+        see stages.deskew_spec_dispatch), their canvas maps and the chain,
+        all on the device. Labelling the components reads one flag back
+        per sweep (ops/cc.label_components), so this waits for the
+        segmentation to finish; the chain itself is only enqueued."""
+        big_hw = tuple(region_dev.shape)
+        if tuple(mask_dev.shape) != big_hw:
+            raise ValueError(f"textline canvas {tuple(mask_dev.shape)} != "
+                             f"region canvas {big_hw}")
+        H, W = big_hw
+        s = self.spec_canvas()
+        bufH, bufW = self.spec_buffer_shape(big_hw)
+        dev = mask_dev.device
+        with stagetime.device_section(dev):
+            # outside the crop the canvas holds white-tile predictions the
+            # host never sees; they would mint or merge components
+            ins = ((torch.arange(H, device=dev)[:, None] < int(crop_hw[0]))
+                   & (torch.arange(W, device=dev)[None, :] < int(crop_hw[1])))
+            m = torch.where(ins, region_dev, torch.zeros_like(region_dev))
+            boxes5 = cc_ops.component_boxes_topk(m, slots, min_area,
+                                                 max_area)
+            # target_table[m] = int(m * pad_factor), built on the host so
+            # that the downscale trigger is the host's
+            table = torch.from_numpy(
+                (np.arange(max(H, W) + 1, dtype=np.float64)
+                 * float(self.cfg.pad_factor)).astype(np.int64)).to(dev)
+            cy, cx = _canvas_maps_graph(boxes5[:, 2], boxes5[:, 3], s, table)
+            angles = torch.from_numpy(np.concatenate(
+                [self._coarse, self._vertical])).to(dev)
+            out = _resident_chain(
+                mask_dev, boxes5[:, :4], cy, cx, angles, B=slots,
+                ac_n=self._coarse.shape[0], s=s, cfg=self.cfg,
+                erode_eff=self._erode_eff, morph_k=self._morph_k,
+                bufH=bufH, bufW=bufW)
+            out = torch.cat([boxes5.to(torch.float32), out], dim=1)
+        return _SpecPending(out, s, bufH, bufW, slots, mask_dev)
+
+    def spec_finalize(self, pending: _SpecPending, boxes_xywh):
+        """Match the host contour boxes against the speculative device
+        boxes; returns a handle for resident_collect. A region takes its
+        speculative slot only when (a) the page's canvas bucket is the
+        speculative one, (b) its box fits the speculative crop buffer, (c)
+        the device canvas maps for its (h, w) equal the host maps, and (d)
+        a valid slot holds the identical box; every other region goes to
+        an ordinary dispatch (all of them when (a) fails). Raises
+        ValueError where resident_dispatch would (a region over the
+        cap)."""
+        boxes_xywh = [list(map(int, b)) for b in boxes_xywh]
+        n = len(boxes_xywh)
+        if n == 0:
+            return []
+        self._check_cap(tuple(pending.mask_dev.shape), boxes_xywh)
+        s_host = self._bucket_for_sizes([(b[3], b[2]) for b in boxes_xywh])
+        if s_host != pending.s:
+            return self.resident_dispatch(pending.mask_dev, boxes_xywh)
+        with stagetime.device_section(pending.out_dev.device):
+            out = pending.out_dev.cpu().numpy()
+        dev_boxes = out[:, :5].astype(np.int64)
+        mapping = [-1] * n
+        used = set()
+        for i, (x, y, w, h) in enumerate(boxes_xywh):
+            if h > pending.bufH or w > pending.bufW:
+                continue
+            gm = _canvas_maps_graph_host(h, w, pending.s,
+                                         self.cfg.pad_factor)
+            hm = _canvas_index_maps(h, w, pending.s, self.cfg.pad_factor)
+            if not (np.array_equal(gm[0], hm[0])
+                    and np.array_equal(gm[1], hm[1])):
+                continue
+            for j in range(pending.slots):
+                if j in used or dev_boxes[j, 4] == 0:
+                    continue
+                if tuple(dev_boxes[j, :4]) == (y, x, h, w):
+                    mapping[i] = j
+                    used.add(j)
+                    break
+        fb_idx = [i for i, j in enumerate(mapping) if j < 0]
+        fallback = (self.resident_dispatch(
+            pending.mask_dev, [boxes_xywh[i] for i in fb_idx])
+            if fb_idx else None)
+        return _SpecResolved(pending, out, mapping, boxes_xywh, fallback)
+
+    def _spec_collect(self, r: _SpecResolved):
+        fb = iter(zip(*self.resident_collect(r.fallback))
+                  if r.fallback is not None else ())
+        bufH = r.pending.bufH
+        slopes: List[float] = []
+        profiles_out = []
+        for (x, y, w, h), j in zip(r.boxes, r.mapping):
+            if j < 0:
+                sl, pr = next(fb)
+                slopes.append(sl)
+                profiles_out.append(pr)
+                continue
+            row = r.out[j]
+            slopes.append(float(row[5]))
+            profiles_out.append((row[6:6 + h], row[6 + bufH:6 + bufH + w]))
         return slopes, profiles_out

@@ -11,6 +11,17 @@ and keeps the textline canvas there; host contours give the regions; the
 resident deskew chain (with the Radon kernel) computes slopes and deskewed
 line profiles; line split, reading order and PAGE-XML run on the host.
 
+Every RuntimeConfig flag of the JAX package is honoured. The device phase
+takes the first of these rungs that is switched on and works, each failure
+logged and counted in `fallbacks`: the fully-fused page box
+(`fused_page_box`: the page model's input, forward and box decision on the
+device, rung "fused_page_box" when it fails), the headless page box
+(`device_page_box`: the same box from a separate page_box_dev call, rung
+"device_page_box"), the raw path, then the standard path. With
+`spec_deskew` the raw path enqueues the speculative deskew chain from
+device region boxes right behind the segmentation (its state's `spec`),
+resolved against the host contours in host_phase_dispatch / host_phase.
+
 The reference's fallback ladder is ported with it, every rung on the
 detector's device (nothing moves a page to the CPU, and the Radon wrapper
 launches its kernel on a CUDA tensor or raises):
@@ -69,8 +80,7 @@ import numpy as np
 import torch
 
 from sbb_textline_detection_tpu_torch.core.config import (DEFAULT_CONFIG,
-                                                    PipelineConfig,
-                                                    RuntimeConfig)
+                                                    PipelineConfig)
 from sbb_textline_detection_tpu_torch.pagexml import writer as pagexml_writer
 from sbb_textline_detection_tpu_torch.models.runner import ModelBundle
 from sbb_textline_detection_tpu_torch.pipeline import order as order_mod
@@ -79,18 +89,6 @@ from sbb_textline_detection_tpu_torch.pipeline.deskew import DeskewEngine
 from sbb_textline_detection_tpu_torch.utils import stagetime
 
 LOG = logging.getLogger("sbb_textline_detection_tpu_torch.detector")
-
-
-# RuntimeConfig flags (the config module is a copy of the JAX package's)
-# whose feature the port does not have yet, with the ROADMAP item that
-# brings it. A non-default value raises instead of silently running
-# another path.
-_UNPORTED_FLAGS = {
-    "spec_deskew": 'Queue 1 "Speculative deskew"',
-    "device_page_box": 'Queue 1 "Headless and fused page box"',
-    "fused_page_box": 'Queue 1 "Headless and fused page box"',
-    "deskew_buf_max": 'Queue 1 "Resident deskew buffer cap"',
-}
 
 
 @dataclasses.dataclass
@@ -137,6 +135,9 @@ class _DeviceState:
     textline_proj: Optional[np.ndarray] = None
     # a model failure already cost this page its regions
     failed: bool = False
+    # the speculative deskew enqueued behind the fused call
+    # (runtime.spec_deskew), resolved against the host contour boxes
+    spec: Optional[object] = None
 
     def textline_mask_or_fetch(self) -> Optional[np.ndarray]:
         """The host textline mask, fetched from the device canvas when
@@ -172,6 +173,19 @@ def _page_quad(page_coord):
                      [page_coord[2], page_coord[1]]])
 
 
+def _box5_page_coords(box5, image_filename):
+    """(page_coord, cont_page, crop_hw) from a device [by, bx, h, w, valid]
+    box, shared by the headless and the fully-fused phase; a box without a
+    component is the whole page (main.py:406-426)."""
+    by, bx, bh, bw, ok = (int(v) for v in box5)
+    if not ok:
+        LOG.warning("page-border detection found no printspace for %s; "
+                    "using the whole page (main.py:406-426 fallback)",
+                    image_filename)
+    page_coord = [by, by + bh, bx, bx + bw]
+    return page_coord, _page_quad(page_coord), (bh, bw)
+
+
 def _split_fused(masks):
     """(region_mask, textline_mask, textline_dev, textline_proj) from a
     fused-path per-page tuple: 2-tuple = masks only, 3-tuple = + the
@@ -194,14 +208,6 @@ class TextlineDetector:
 
     def __init__(self, models: ModelBundle,
                  config: PipelineConfig = DEFAULT_CONFIG):
-        defaults = RuntimeConfig()
-        for flag, item in _UNPORTED_FLAGS.items():
-            if getattr(config.runtime, flag) != getattr(defaults, flag):
-                raise NotImplementedError(
-                    f"RuntimeConfig.{flag}={getattr(config.runtime, flag)!r}"
-                    f": the PyTorch port does not implement this flag yet "
-                    f"(ROADMAP {item}); leave it at its default "
-                    f"{getattr(defaults, flag)!r}")
         self.models = models
         self.config = config
         self.deskew = DeskewEngine(
@@ -211,7 +217,8 @@ class TextlineDetector:
             morph_kernel=config.morphology.kernel_size,
             crop_erode_iterations=(
                 config.morphology.deskew_crop_erode_iterations),
-            device=models.region.device)
+            device=models.region.device,
+            buf_max=config.runtime.deskew_buf_max)
         # pages that lost their regions to a failure
         self.degraded = 0
         # rungs of the fallback ladder that gave way, by rung
@@ -238,6 +245,18 @@ class TextlineDetector:
         skips its own page-model forward."""
         rt = self.config.runtime
         if rt.resident_upload and rt.raw_upload:
+            for flag, fused in (("fused_page_box", True),
+                                ("device_page_box", False)):
+                if not (rt.textline_projection and getattr(rt, flag)):
+                    continue
+                try:
+                    return self._device_phase_fetchfree(image,
+                                                        image_filename, fused)
+                except Exception:
+                    LOG.warning("%s device phase failed for %s; trying the "
+                                "next rung", flag, image_filename,
+                                exc_info=True)
+                    self._fell_back(flag)
             try:
                 return self._device_phase_raw(image, image_filename,
                                               pre_box=pre_box)
@@ -266,6 +285,58 @@ class TextlineDetector:
         rt = self.config.runtime
         keep_dev = bool(rt.resident_deskew)
         return keep_dev, keep_dev and bool(rt.textline_projection)
+
+    def _device_phase_fetchfree(self, image: np.ndarray, image_filename: str,
+                                fused: bool) -> _DeviceState:
+        """The device phase without a host page-box decision
+        (runtime.fused_page_box with `fused`, else device_page_box): the
+        raw upload, then either page_box_dev and the headless fused call,
+        or the fully-fused call that runs the page model on the resident
+        raw page itself. The upload (and the box call) count as
+        page_extraction, the fused call as region_extraction."""
+        cfg = self.config
+        t: Dict[str, float] = {}
+        dev: Dict[str, float] = {}
+        stagetime.reset()
+        t0 = time.time()
+        th, tw = stages.working_dims(image, cfg)
+        scaled = stages.LazyScaledImage(image, th, tw)
+        # the page model reads RGB: one plane only for a gray page when it
+        # forms the page model's input on the device
+        plane = _channels_identical(image) or (
+            self.models.is_dual_head and not fused)
+        raw_dev = self.models.region.upload_raw(
+            image[:, :, 0] if plane and image.ndim == 3 else image)
+        if not fused:
+            mh, mw = self.models.page.input_hw
+            box5_dev = self.models.page.page_box_dev(
+                stages.page_model_input_from_raw(image, th, tw, mh, mw),
+                th, tw)
+        t["page_extraction"] = time.time() - t0
+        dev["page_extraction"], flops = stagetime.snapshot()
+
+        stagetime.reset()
+        t1 = time.time()
+        if fused:
+            res = stages.extract_regions_and_textline_resident_raw_fullfused(
+                raw_dev, (th, tw), self.models, cfg, raw_hw=image.shape[:2])
+        else:
+            res = stages.extract_regions_and_textline_resident_raw_headless(
+                raw_dev, box5_dev, (th, tw), self.models, cfg,
+                raw_hw=image.shape[:2])
+        if res is None:
+            raise RuntimeError("bundle cannot run the fetch-free path")
+        region_mask, textline_proj, textline_dev, box5 = res
+        page_coord, cont_page, crop_hw = _box5_page_coords(box5,
+                                                           image_filename)
+        if not box5[4]:
+            self._fell_back("whole_page_box")
+        t["region_extraction_model"] = time.time() - t1
+        dev["region_extraction"], f = stagetime.snapshot()
+        t["textlines"] = dev["textlines"] = 0.0
+        return _DeviceState(image_filename, scaled, crop_hw, page_coord,
+                            cont_page, region_mask, None, t, dev, flops + f,
+                            textline_dev, textline_proj)
 
     def _device_phase_raw(self, image: np.ndarray, image_filename: str = "",
                           pre_box=None) -> _DeviceState:
@@ -302,10 +373,25 @@ class TextlineDetector:
         t1 = time.time()
         keep_dev, tp = self._fused_modes()
         pbox = [page_coord[0], page_coord[2], box[3], box[2]]
-        res = stages.extract_regions_and_textline_resident_raw(
-            [raw_dev], [pbox], [(th, tw)], self.models, cfg,
-            return_device_textline=keep_dev, textline_projection=tp,
-            raw_hws=[image.shape[:2]])
+        spec = res = None
+        if tp and cfg.runtime.spec_deskew:
+            # the speculative deskew: the fused call's outputs stay on the
+            # device, the region crop starts its copy to the host, the
+            # chain is enqueued from device boxes, and only then does the
+            # host wait for the crop (deskew.py:958-977 of the JAX package)
+            handle = stages.extract_regions_and_textline_resident_raw(
+                [raw_dev], [pbox], [(th, tw)], self.models, cfg,
+                return_device_textline=True, textline_projection=True,
+                raw_hws=[image.shape[:2]], defer_fetch=True)
+            if handle is not None:
+                spec = stages.deskew_spec_dispatch(
+                    self.deskew, handle, (box[3], box[2]), cfg)
+                res = [handle.fetch()]
+        if res is None:
+            res = stages.extract_regions_and_textline_resident_raw(
+                [raw_dev], [pbox], [(th, tw)], self.models, cfg,
+                return_device_textline=keep_dev, textline_projection=tp,
+                raw_hws=[image.shape[:2]])
         if not res:
             raise RuntimeError("bundle cannot run the raw-resident path")
         region_mask, textline_mask, textline_dev, textline_proj = \
@@ -316,7 +402,7 @@ class TextlineDetector:
         return _DeviceState(image_filename, scaled, (box[3], box[2]),
                             page_coord, _page_quad(page_coord), region_mask,
                             textline_mask, t, dev, flops + f, textline_dev,
-                            textline_proj)
+                            textline_proj, spec=spec)
 
     def _device_phase_standard(self, image: np.ndarray,
                                image_filename: str = "") -> _DeviceState:
@@ -538,9 +624,13 @@ class TextlineDetector:
             t_contours = time.time() - t1
             stagetime.reset()
             t2 = time.time()
-            handle = (stages.deskew_dispatch_resident(boxes, self.deskew,
-                                                      st.textline_dev)
-                      if contours else None)
+            handle = None
+            if contours and st.spec is not None:
+                handle = stages.deskew_finalize_spec(
+                    st.spec, boxes, self.deskew, st.textline_dev)
+            elif contours:
+                handle = stages.deskew_dispatch_resident(
+                    boxes, self.deskew, st.textline_dev)
             # the chain is only enqueued here: its ledger is read in
             # host_phase, after the collect
             return {"contours": contours, "boxes": boxes,
@@ -596,12 +686,19 @@ class TextlineDetector:
             if contours:
                 stagetime.reset()
                 t3 = time.time()
+                handle = pre.get("handle") if pre else None
+                attempted = pre is not None
+                if not attempted and st.spec is not None:
+                    # no host_phase_dispatch ran: resolve the speculative
+                    # dispatch here rather than dispatch anew
+                    handle = stages.deskew_finalize_spec(
+                        st.spec, boxes, self.deskew, st.textline_dev)
+                    attempted = True
                 slopes, textlines = stages.slopes_and_lines(
                     contours, boxes, st.textline_mask, cfg, self.deskew,
-                    textline_dev=st.textline_dev,
-                    deskew_handle=pre.get("handle") if pre else None,
+                    textline_dev=st.textline_dev, deskew_handle=handle,
                     textline_mask_fetch=st.textline_mask_or_fetch,
-                    deskew_attempted=pre is not None,
+                    deskew_attempted=attempted,
                     on_fallback=self._fell_back, timings=t)
                 # deskew: the sweeps or the chain with their wait for the
                 # device; line_split: the host's per-region line extraction
@@ -686,10 +783,13 @@ class TextlineDetector:
 
     def _page_box_batch_size(self) -> int:
         """Window size of the batched page-box stage, or 0 when the path
-        in use cannot consume a ready box (only the raw path does)."""
+        in use cannot consume a ready box (only the raw path does; the
+        fetch-free paths decide the box on the device)."""
         rt = self.config.runtime
         n = max(0, rt.page_box_batch)
         if n <= 1 or not (rt.resident_upload and rt.raw_upload):
+            return 0
+        if rt.device_page_box or rt.fused_page_box:
             return 0
         return n
 

@@ -271,11 +271,15 @@ def extract_regions_and_textline_resident_raw(raws, boxes, scaled_hws,
                                               bool = False,
                                               raw_hws=None,
                                               textline_projection:
-                                              bool = False):
+                                              bool = False,
+                                              defer_fetch: bool = False):
     """Fused segmentation reading from RESIDENT raw pages (upload_raw):
     the working canvas is gathered on the device through exact nearest
     index maps. Returns one tuple per page as
-    extract_regions_and_textline, or None when the bundle cannot fuse."""
+    extract_regions_and_textline, or None when the bundle cannot fuse.
+    With `defer_fetch` (one page, projection mode) it returns the runner's
+    DeferredFusedRaw instead: the caller enqueues the speculative deskew
+    behind it, then calls fetch()."""
     if not _can_fuse(models):
         return None
     return models.region.predict_dual_tiled_resident_raw(
@@ -283,7 +287,39 @@ def extract_regions_and_textline_resident_raw(raws, boxes, scaled_hws,
         return_device_textline=return_device_textline, raw_hws=raw_hws,
         textline_projection=(return_device_textline
                              and textline_projection),
-        **_region_shaping(cfg))
+        defer_fetch=defer_fetch, **_region_shaping(cfg))
+
+
+def extract_regions_and_textline_resident_raw_headless(
+        raw_dev, boxes5_dev, scaled_hw, models: ModelBundle,
+        cfg: PipelineConfig, raw_hw=None):
+    """Fused segmentation of a RESIDENT raw page with a DEVICE page box
+    (runner.page_box_dev). Returns (region_mask, row_projection,
+    textline_dev, box5) or None when the bundle cannot fuse."""
+    if not _can_fuse(models):
+        return None
+    return models.region.predict_dual_tiled_resident_raw_headless(
+        models.textline, raw_dev, boxes5_dev, scaled_hw,
+        cfg.tiling.margin_ratio, raw_hw=raw_hw, **_region_shaping(cfg))
+
+
+def extract_regions_and_textline_resident_raw_fullfused(
+        raw_dev, scaled_hw, models: ModelBundle, cfg: PipelineConfig,
+        raw_hw):
+    """The page's whole device phase from its RESIDENT raw page
+    (runner.predict_dual_tiled_resident_raw_fullfused): the page model's
+    input gathered on the device, the page forward and box decision, and
+    the fused segmentation. Returns (region_mask, row_projection,
+    textline_dev, box5) or None when the bundle cannot fuse."""
+    if not _can_fuse(models):
+        return None
+    th, tw = scaled_hw
+    pmh, pmw = models.page.input_hw
+    sy = resize_ops.compose_nearest_indices(pmh, th, raw_hw[0])
+    sx = resize_ops.compose_nearest_indices(pmw, tw, raw_hw[1])
+    return models.region.predict_dual_tiled_resident_raw_fullfused(
+        models.textline, models.page, raw_dev, sy, sx, scaled_hw,
+        cfg.tiling.margin_ratio, raw_hw=raw_hw, **_region_shaping(cfg))
 
 
 def region_contours_and_boxes(region_mask: np.ndarray, cfg: PipelineConfig
@@ -394,6 +430,49 @@ def deskew_dispatch_resident(boxes: List[List[int]], engine: DeskewEngine,
         return engine.resident_dispatch(textline_dev, boxes)
     except Exception:
         logger.warning("resident deskew dispatch failed for %d regions; "
+                       "host path will run", len(boxes), exc_info=True)
+        return None
+
+
+def deskew_spec_dispatch(engine: DeskewEngine, fused_handle, crop_hw,
+                         cfg: PipelineConfig):
+    """Enqueue the SPECULATIVE resident deskew behind a deferred fused
+    call (DeskewEngine.spec_dispatch): device component boxes stand in for
+    the host contours it would otherwise wait for. The area bounds are
+    PERMISSIVE pixel-count versions of the host polygon-area filter
+    (main.py:473): a filled component's pixel count is at least its
+    polygon area, so half the min bound cannot drop a region the host
+    keeps, and the max bound is widened the same way; a false pass only
+    costs a slot, since spec_finalize trusts exact box matches alone.
+    Returns a pending handle, or None (no speculation: the ordinary
+    dispatch runs after the contours)."""
+    if fused_handle is None:
+        return None
+    area = float(crop_hw[0]) * float(crop_hw[1])
+    amin = 0.5 * cfg.region.min_area_ratio * area
+    ratio = cfg.region.max_area_ratio
+    amax = area if ratio >= 1.0 else min(area, 1.5 * ratio * area)
+    try:
+        return engine.spec_dispatch(
+            fused_handle.region_dev, fused_handle.textline_dev, crop_hw,
+            amin, amax, slots=cfg.runtime.deskew_spec_slots)
+    except Exception:
+        logger.warning("speculative deskew dispatch failed; the ordinary "
+                       "dispatch will run after contours", exc_info=True)
+        return None
+
+
+def deskew_finalize_spec(spec_pending, boxes: List[List[int]],
+                         engine: DeskewEngine, textline_dev):
+    """Resolve a speculative deskew against the host contour boxes:
+    a handle for slopes_and_lines (engine.resident_collect), or None (the
+    host sweep serves the page), as deskew_dispatch_resident."""
+    if spec_pending is None:
+        return deskew_dispatch_resident(boxes, engine, textline_dev)
+    try:
+        return engine.spec_finalize(spec_pending, boxes)
+    except Exception:
+        logger.warning("speculative deskew finalize failed for %d regions; "
                        "host path will run", len(boxes), exc_info=True)
         return None
 

@@ -9,16 +9,24 @@ against the plain PyTorch version (rtol 1e-4, atol 1e-2):
   * the main path's group shapes (8 and 2 regions x 110 angles at
     S = 512, 8 x 110 at S = 256) on binary canvases at 20 % fill and on
     text-like bands (ops/radon_bench.py, the inputs of chip_smoke.py);
+  * the host sweep's shapes (8 x 80 and 8 x 30 angles at S = 512, 2 x 80
+    at S = 256) on the page-crop canvases of chip_smoke.py's host-sweep
+    rows;
   * every sweep of the page that chip_smoke.py profiles (random weights
-    of seed 0, the A4 page of rng seed 1 at +8 degrees), with the
-    canvases and angles that the deskew chain hands the kernel; the
+    of seed 0, the A4 page of rng seed 1 at +8 degrees, served with
+    chip_smoke.py's serving config so that the resident chain runs), with
+    the canvases and angles that the deskew chain hands the kernel; the
     timed call runs all of the page's groups back to back. For the page
     the row also carries the sum over its sweeps of chip_smoke.py's bound,
     of the plain version's time and of the library's matrix form (two
     float32 torch.bmm per pair, TF32 off).
-A source exports either `radon_sweep_launch` (the full region x angle
-product, csrc/radon.cu) or `radon_pairs_launch` (flattened pair indices,
-the kernel of the first port, which the A/B in PERF.md compares against).
+A source exports `radon_sweep_fixed_launch` (the full region x angle
+product with fixed-point sums across blocks, csrc/radon.cu),
+`radon_sweep_launch` (the same product with float atomics across blocks,
+the kernel of the port's second form) or `radon_pairs_launch` (flattened
+pair indices, the kernel of the first port). Every call of each source is
+also checked against its first call on the same inputs: the row's
+`{a,b}_reproducible` says whether every output was bitwise equal.
 Prints the card's name and power limit, then one JSON object per case;
 exits 1 without a card or on a mismatch.
 """
@@ -33,6 +41,7 @@ from collections import Counter
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPS = 50      # timed calls per reading
+REPEATS = 19   # calls compared with the first, per source and case
 SEED = 0       # chip_smoke.py's seed: noise at SEED, bands at SEED + 5
 
 
@@ -45,7 +54,9 @@ def _build(src, tag):
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(out)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    if hasattr(lib, "radon_sweep_launch"):
+    if hasattr(lib, "radon_sweep_fixed_launch"):
+        lib.radon_sweep_fixed_launch.argtypes = [vp] * 5 + [ci] * 3 + [vp]
+    elif hasattr(lib, "radon_sweep_launch"):
         lib.radon_sweep_launch.argtypes = [vp] * 4 + [ci] * 3 + [vp]
     else:
         lib.radon_pairs_launch.argtypes = [vp] * 6 + [ci, ci, vp]
@@ -60,6 +71,18 @@ def _launcher(lib, canv, cosv, sinv):
     n = int(cosv.shape[0])
     out = torch.empty((r * n, s), dtype=torch.float32, device=canv.device)
     stream = torch.cuda.current_stream().cuda_stream
+    if hasattr(lib, "radon_sweep_fixed_launch"):
+        scratch = torch.empty(out.numel(), dtype=torch.int64,
+                              device=canv.device)
+
+        def run():
+            err = lib.radon_sweep_fixed_launch(
+                canv.data_ptr(), cosv.data_ptr(), sinv.data_ptr(),
+                out.data_ptr(), scratch.data_ptr(), r, n, s, stream)
+            if err:
+                raise RuntimeError(f"launch failed: CUDA error {err}")
+            return out
+        return run
     if hasattr(lib, "radon_sweep_launch"):
         def run():
             err = lib.radon_sweep_launch(canv.data_ptr(), cosv.data_ptr(),
@@ -95,9 +118,11 @@ def _page_sweeps(dev):
         DEFAULT_CONFIG, TextlineDetector)
     from sbb_textline_detection_tpu_torch.utils import synthetic
 
+    from chip_smoke import _serve_config
+
     det = TextlineDetector(ModelBundle.random_init(
         DEFAULT_CONFIG.runtime, seed=SEED, device=dev, dual_head=True),
-        DEFAULT_CONFIG)
+        _serve_config())
     img, _ = synthetic.make_page(np.random.default_rng(SEED + 1), 3508,
                                  2480, skew_deg=8.0)
     groups, sweep = [], radon.radon_pairs
@@ -149,11 +174,14 @@ def _compare(libs, cases, row):
         want = radon.radon_pairs_plain(canv, cosv, sinv)
         for k, lib in libs.items():
             run = _launcher(lib, canv, cosv, sinv)
-            got = run()
+            got = run().clone()
+            same = all(torch.equal(run(), got) for _ in range(REPEATS))
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             row[f"{k}_max_abs_err"] = max(row.get(f"{k}_max_abs_err", 0.0),
                                           err)
+            row[f"{k}_reproducible"] = row.get(f"{k}_reproducible",
+                                               True) and same
             ok &= bool(torch.allclose(got, want, rtol=1e-4, atol=1e-2))
             runs[k].append(run)
     for k in ("a", "b", "b", "a"):
@@ -189,6 +217,13 @@ def main() -> int:
             ok &= _compare(libs, [(torch.from_numpy(canv).to(dev), angles)],
                            row)
             print(json.dumps(row), flush=True)
+    from chip_smoke import _host_sweep_cases
+    for name, canv, angles in _host_sweep_cases(dev):
+        row = {"regions": int(canv.shape[0]), "s": int(canv.shape[1]),
+               "canvas": name, "angles": int(angles.shape[0]),
+               "set_pixels": int((canv != 0).sum())}
+        ok &= _compare(libs, [(canv, angles)], row)
+        print(json.dumps(row), flush=True)
     groups = _page_sweeps(dev)
     row = {"page": "a4_skew+8", "sweeps": len(groups),
            "groups": dict(Counter(

@@ -3,7 +3,8 @@ JAX package under the same condition:
 
   * float32 models run with TF32 off (ops/precision.full_f32), bf16 ones
     are left alone;
-  * a RuntimeConfig flag whose feature the port lacks raises;
+  * every RuntimeConfig flag is read: the four that the port once
+    refused build a detector that serves a page as the JAX detector does;
   * an injected failure at each point of a page degrades exactly as far
     as the JAX detector degrades under the same failure (PAGE-XML equal),
     each rung that gave way is counted in `fallbacks`, and a page that a
@@ -87,7 +88,7 @@ def _spied_model(spec, dtype, seen):
 
 
 ENTRY_POINTS = ["predict_small_prescaled", "predict_whole_small",
-                "predict_tiled", "predict_dual_tiled",
+                "page_box_dev", "predict_tiled", "predict_dual_tiled",
                 "predict_dual_tiled_resident",
                 "predict_dual_tiled_resident_raw"]
 
@@ -107,6 +108,9 @@ def test_forwards_run_in_full_f32(tf32_on, entry, dtype):
     if entry in ("predict_small_prescaled", "predict_whole_small"):
         m = _spied_model(TEXTLINE_TINY, dtype, seen)
         getattr(m, entry)(img[:64, :64] if "prescaled" in entry else img)
+    elif entry == "page_box_dev":
+        m = _spied_model(TEXTLINE_TINY, dtype, seen)
+        m.page_box_dev(img[:64, :64], 100, 90)
     elif entry == "predict_tiled":
         m = _spied_model(REGION_TINY, dtype, seen)
         m.predict_tiled(img, pre_otsu=True, **SHAPING)
@@ -132,7 +136,7 @@ def test_forwards_run_in_full_f32(tf32_on, entry, dtype):
     assert _tf32() == (True, True)
 
 
-# -- A2: flags of features the port lacks -------------------------------------
+# -- A2: the flags the port once refused ---------------------------------------
 
 def _with_runtime(**flags):
     return dataclasses.replace(
@@ -141,30 +145,38 @@ def _with_runtime(**flags):
 
 @pytest.mark.parametrize("flag,value", [
     ("spec_deskew", True), ("device_page_box", True),
-    ("fused_page_box", True), ("deskew_buf_max", 2048)])
-def test_unported_flags_raise(bundles, flag, value):
-    _, tb = bundles
-    assert flag in detector._UNPORTED_FLAGS
-    with pytest.raises(NotImplementedError, match=flag) as err:
-        detector.TextlineDetector(tb, _with_runtime(**{flag: value}))
-    assert "ROADMAP" in str(err.value)
+    ("fused_page_box", True), ("deskew_buf_max", 64)])
+def test_once_refused_flags_serve_like_jax(bundles, flag, value):
+    """Each flag builds a detector that serves a tiny page with the JAX
+    detector's page box, slopes and PAGE-XML under the same flag (64 puts
+    the page's regions over the deskew buffer cap: the host sweep serves
+    them, counted as the JAX package's ladder would)."""
+    jb, tb = bundles
+    cfg = _with_runtime(**{flag: value})
+    jdet, det = _pair(jb, tb, cfg)
+    want, got = _both(jdet, det, _page(0, 210, 170))
+    assert len(got.contours) >= 3 and not got.degraded
+    assert det.fallbacks == ({"host_sweep": 1} if flag == "deskew_buf_max"
+                             else {})
 
 
 def test_every_runtime_flag_is_read_raised_or_listed(bundles):
     """No RuntimeConfig field is silently ignored: each is read by the
-    port, raises when set, or is one of the three the README lists as
-    without effect; and the defaults construct."""
+    port or is one of the two the README lists as without effect; and the
+    defaults construct."""
     _, tb = bundles
     detector.TextlineDetector(tb, DEFAULT_CONFIG)
     read = {"batch_buckets", "tile_chunk", "grid_bucket", "grid_bucket_x",
             "compute_dtype", "deskew_batch", "deskew_canvas",
             "exact_point_in_polygon", "resident_deskew",
             "textline_projection", "raw_upload", "resident_upload",
-            "pages_per_dispatch", "device_phase_workers", "page_box_batch"}
-    without_effect = {"warm_fallback_programs", "mesh_auto_group",
-                      "deskew_spec_slots"}
+            "pages_per_dispatch", "device_phase_workers", "page_box_batch",
+            "spec_deskew", "deskew_spec_slots", "device_page_box",
+            "fused_page_box", "deskew_buf_max"}
+    without_effect = {"warm_fallback_programs", "mesh_auto_group"}
     fields = {f.name for f in dataclasses.fields(RuntimeConfig)}
-    assert fields == read | without_effect | set(detector._UNPORTED_FLAGS)
+    assert fields == read | without_effect
+    assert not hasattr(detector, "_UNPORTED_FLAGS")
 
 
 # -- A3: the scope of a degraded page -------------------------------------------

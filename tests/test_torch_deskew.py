@@ -112,9 +112,12 @@ def test_resident_chain_matches_jax(page, idx):
 
 def test_engine_dispatch_collect_matches_chain(page):
     """resident_dispatch groups (8 slots, or 2 for a 1-2 region tail) and
-    per-group buffers; collect slices each region's profiles."""
+    per-group buffers; collect slices each region's profiles. The cap is
+    raised above the wide region (under the default 2816 it would raise:
+    tests/test_torch_deskew_spec.py)."""
     mask, boxes = page
-    eng = deskew.DeskewEngine(CFG, max_canvas=S, region_batch=2)
+    eng = deskew.DeskewEngine(CFG, max_canvas=S, region_batch=2,
+                              buf_max=3072)
     slopes, profs = eng.resident_collect(
         eng.resident_dispatch(torch.from_numpy(mask), boxes))
     assert len(slopes) == len(profs) == len(boxes)

@@ -13,8 +13,8 @@ import torch
 
 from sbb_textline_detection_tpu_torch.ops import radon, radon_bench
 
-# f32 sums in another order, and global atomics in an order that changes
-# from run to run: the JAX package's Pallas-vs-einsum tolerance
+# f32 sums in another order than the matrix form's: the JAX package's
+# Pallas-vs-einsum tolerance
 RTOL, ATOL = 1e-4, 1e-2
 
 
@@ -85,3 +85,19 @@ def test_card_tensors_never_take_the_plain_version(cuda_device, monkeypatch):
                               for x in (canv, angles)])
     torch.cuda.synchronize()
     assert out.device.type == "cuda" and tuple(out.shape) == (16, 64)
+
+
+@pytest.mark.cuda
+def test_kernel_is_reproducible_on_card(cuda_device):
+    """The blocks' partial sums go through integer atomics: 20 launches on
+    the same inputs are bitwise equal, and a region's rows do not depend
+    on the other regions of its batch."""
+    canv = torch.from_numpy(radon_bench.noise(7, 8, 512)).to(cuda_device)
+    angles = torch.from_numpy(radon_bench.sweep_angles()).to(cuda_device)
+    first = radon.radon_pairs(canv, angles)
+    for _ in range(19):
+        assert torch.equal(radon.radon_pairs(canv, angles), first)
+    n = int(angles.shape[0])
+    tail = radon.radon_pairs(canv[6:].contiguous(), angles)
+    torch.cuda.synchronize()
+    assert torch.equal(tail, first[6 * n:])
