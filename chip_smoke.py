@@ -102,12 +102,35 @@ Phases (any failure raises and the script exits non-zero):
      the peak device memory: the loss must fall; (c) a page model trained
      for PAGE_STEPS steps and the dual-head model are saved with
      checkpoint.save under build/smoke_models/, loaded by
-     ModelBundle.from_dir, and serve one A4 page, which must not degrade.
+     ModelBundle.from_dir, and serve one A4 page, which must not degrade;
+  9. the OCR-D processor (ocrd_phase), through the stub OCR-D framework
+     of tests/ocrd_stub.py, on two A4 pages (one as scanned, one the crop
+     at OCRD_CROP of a larger scan, whose page transform is a
+     translation), with the full-width random-weight bundle saved as .npz
+     and loaded through its `model` parameter: each merged PAGE-XML must
+     have one Border, a ReadingOrder whose refs are the kept regions' ids
+     and the processing-step item, every line within its region and every
+     region within the Border; the cropped page's coordinates must be the
+     detector's own moved by the offset; no page may degrade, and the
+     Radon kernel must launch on each; seconds per page and in the merge
+     are printed;
+ 10. the meshes (mesh_phase): (a) a serving mesh of max(2, cards) data
+     members (two on the one card) serves the 3 pages of phase 4 through
+     process_batch under mesh_auto_group, against the unmeshed bundle in
+     groups of the same size: the group size must equal the data axis, no
+     page may degrade or fall back, and in float32 (TF32 off) the region
+     masks and PAGE-XML must be equal; in bf16 the share of differing
+     region-mask pixels is printed, with pages/s of both runs; (b) one
+     sharded AdamW step of the full-width dual-head model (float32, TF32
+     off, batch 8, cuDNN's deterministic algorithms) in a world-size-1
+     NCCL group on a (1, 1) mesh must equal the plain step to
+     MESH_TRAIN_RTOL; with two or more cards, `parallel.dryrun --devices 2
+     --backend nccl` runs too.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. The kernel line's launches add up phases
-4, 5, 6 (the flags) and 7 (a)-(d). With --only batch, phases 4 (classic
-bundle), 5 and 8 are left out (a shorter run while working on the batch; the default runs
-everything). With --details PATH, the run's details
+4, 5, 6 (the flags), 7 (a)-(d), 9 and 10. With --only batch, phases 4
+(classic bundle), 5, 8, 9 and 10 are left out (a shorter run while working
+on the batch; the default runs everything). With --details PATH, the run's details
 (ptxas report, per-page stage timings, kernel times) are written there as
 JSON. After the timed pages, the second page runs once more under
 torch.profiler for its device time by op and the Radon kernel's device
@@ -115,6 +138,7 @@ time (its launches are not counted in the kernel line).
 """
 
 import argparse
+import importlib.util
 import json
 import os
 import subprocess
@@ -199,6 +223,11 @@ BATCH_PAGES = ((3508, 0.0), (3508, 8.0), (3508, -15.0), (3508, 0.0),
 BATCH_MASK_LIMIT = 1e-3
 BATCH_PROFILED_PAGES = 4
 BF16_OPS_S = 989e12
+# ocrd_phase: (y, x) offset of the second page's crop in its larger scan
+OCRD_CROP = (120, 90)
+# mesh_phase: the limit of the (1, 1) training mesh against the plain
+# step (relative, of the loss and of every parameter)
+MESH_TRAIN_RTOL = 1e-6
 
 
 def _serve_config(**flags):
@@ -1631,9 +1660,9 @@ def classic_phase(dev, details):
         shipped.append(image.ndim)
         return upload(image)
 
-    def record_chunk(other, batch, tb):
+    def record_chunk(other, batch, tb, member=0):
         chunks.append(int(batch.shape[0]))
-        return pair(other, batch, tb)
+        return pair(other, batch, tb, member)
 
     models.region.upload_raw = record_upload
     models.region._forward_pair = record_chunk
@@ -1945,6 +1974,407 @@ def serve_trained_phase(dev, details, dual, random_regions):
     _no_fallbacks(det, "the page served by the trained checkpoints")
 
 
+def _within(points, parent, tol=1.0):
+    """Every vertex of `points` inside the convex hull of `parent` (the
+    window the merge clips to) or within `tol` pixels of its edges (the
+    merge rounds clipped vertices to whole pixels)."""
+    import numpy as np
+
+    from sbb_textline_detection_tpu_torch.ops import contours
+    from sbb_textline_detection_tpu_torch.ops import polygon
+
+    hull = polygon.convex_hull(parent)
+    pts = np.asarray(points, float)
+    inside = contours.points_in_polygon(hull, pts[:, 0], pts[:, 1])
+    a, b = hull, np.roll(hull, -1, axis=0)
+    ab = b - a
+    t = np.clip(((pts[:, None] - a) * ab).sum(-1)
+                / np.maximum((ab * ab).sum(-1), 1e-12), 0, 1)
+    dist = np.linalg.norm(pts[:, None] - (a + t[..., None] * ab), axis=-1)
+    return bool(np.all(inside | (dist.min(1) <= tol)))
+
+
+def _merged_coords(root):
+    """(Border points, [(region id, points, [line points])]) of a merged
+    PAGE document, as float arrays."""
+    from sbb_textline_detection_tpu_torch.ocrd import merge
+
+    page = merge.find_child(root, "Page")
+    border = merge.find_child(page, "Border")
+
+    def pts(el):
+        return merge.points_to_polygon(
+            merge.find_child(el, "Coords").get("points"))
+
+    return (None if border is None else pts(border),
+            [(r.get("id"), pts(r), [pts(tl) for tl in
+                                    merge.find_children(r, "TextLine")])
+             for r in merge.find_children(page, "TextRegion")])
+
+
+def ocrd_phase(dev, details):
+    """The OCR-D processor of the port on the card, through the stub OCR-D
+    framework of tests/ocrd_stub.py: the full-width random-weight bundle
+    saved as .npz and loaded through the `model` parameter, two A4 pages
+    (one as scanned, one the crop at OCRD_CROP of a larger scan). Returns
+    the Radon launches of the two pages."""
+    import tempfile
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+    import torch
+
+    from sbb_textline_detection_tpu_torch.models import checkpoint, registry
+    from sbb_textline_detection_tpu_torch.ocrd import merge, processor
+    from sbb_textline_detection_tpu_torch.ops import radon
+    from sbb_textline_detection_tpu_torch.utils import synthetic
+
+    # by its path: another `tests` package may come first on sys.path
+    stub_spec = importlib.util.spec_from_file_location(
+        "ocrd_stub", os.path.join(ROOT, "tests", "ocrd_stub.py"))
+    ocrd_stub = importlib.util.module_from_spec(stub_spec)
+    stub_spec.loader.exec_module(ocrd_stub)
+    cfg = _serve_config()
+    names = cfg.model_names
+    pages = []
+    for i, skew in enumerate(SKEWS[:2]):
+        img, _ = synthetic.make_page(np.random.default_rng(SEED + 40 + i),
+                                     3508, 2480, skew_deg=skew)
+        pages.append(img)
+    y0, x0 = OCRD_CROP
+    h, w = pages[1].shape[:2]
+    scan = np.full((h + 2 * y0, w + 2 * x0, 3), 200, np.uint8)
+    scan[y0:y0 + h, x0:x0 + w] = pages[1]
+    stub_pages = [("PHYS_0001", pages[0], None),
+                  ("PHYS_0002", scan, (y0, x0, h, w))]
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        model_dir = os.path.join(tmp, "models")
+        os.makedirs(model_dir)
+        for spec, name in ((registry.DEFAULT_SPECS["page"], names.page),
+                           (registry.DUALHEAD_SPEC, names.dualhead)):
+            checkpoint.save(checkpoint.npz_path(model_dir, name), spec,
+                            checkpoint.random_init(
+                                spec, torch.Generator().manual_seed(SEED)))
+        ws = ocrd_stub.StubWorkspace(tmp, stub_pages)
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        with ocrd_stub.installed():
+            try:
+                proc = processor.OcrdSbbTextlineDetectorRecognize(
+                    ws, ocrd_stub.INPUT_GRP, "OCR-D-SEG",
+                    {"model": model_dir}, config=cfg, device=dev)
+                det = proc._get_detector(model_dir)
+                per_page, merge_s = [], []
+                real_process, real_merge = (det.process_image,
+                                            merge.merge_detection_into_page)
+
+                def process_image(img, name):
+                    torch.cuda.synchronize()
+                    radon.launches = 0
+                    t0 = time.time()
+                    res = real_process(img, name)
+                    torch.cuda.synchronize()
+                    per_page.append({"seconds": time.time() - t0,
+                                     "radon_launches": radon.launches,
+                                     "degraded": res.degraded,
+                                     "regions": len(res.contours),
+                                     "xml": res.xml_tree.getroot()})
+                    return res
+
+                def merge_into(*a, **k):
+                    t0 = time.time()
+                    out = real_merge(*a, **k)
+                    merge_s.append(time.time() - t0)
+                    return out
+
+                det.process_image = process_image
+                merge.merge_detection_into_page = merge_into
+                t0 = time.time()
+                proc.process()
+                total = time.time() - t0
+            finally:
+                merge.merge_detection_into_page = real_merge
+                os.chdir(cwd)
+        docs = [ET.parse(path).getroot() for path in ws.added]
+    tool = next(iter(processor.ocrd_tool()["tools"]))
+    for i, (root, row) in enumerate(zip(docs, per_page)):
+        page = merge.find_child(root, "Page")
+        borders = merge.find_children(page, "Border")
+        ro = merge.find_child(page, "ReadingOrder")
+        refs = [el.get("regionRef") for el in ro.iter()
+                if el.get("regionRef")] if ro is not None else []
+        border, regions = _merged_coords(root)
+        ids = [rid for rid, _, _ in regions]
+        steps = [el for el in root.iter() if el.tag.endswith("MetadataItem")
+                 and el.get("type") == "processingStep"
+                 and el.get("value") == tool]
+        lines_in = all(_within(line, reg) for _, reg, lines in regions
+                       for line in lines)
+        regions_in = border is not None and all(
+            _within(reg, border) for _, reg, _ in regions)
+        row.update({"page": stub_pages[i][0], "borders": len(borders),
+                    "regions_kept": len(ids), "refs_equal_ids":
+                    sorted(refs) == sorted(ids) and len(refs) == len(ids),
+                    "processing_steps": len(steps), "lines_within_regions":
+                    lines_in, "regions_within_border": regions_in,
+                    "textlines": sum(len(lines) for _, _, lines in regions),
+                    "merge_seconds": merge_s[i]})
+        print(f"ocrd {row['page']}: {row['seconds']:.2f} s detection, "
+              f"{merge_s[i] * 1e3:.1f} ms merge, {row['regions']} regions "
+              f"detected, {len(ids)} kept with {row['textlines']} lines, "
+              f"{row['radon_launches']} radon launches; one Border "
+              f"{len(borders) == 1}, ReadingOrder refs = region ids "
+              f"{row['refs_equal_ids']}, processing step "
+              f"{len(steps) == 1}, lines within regions {lines_in}, "
+              f"regions within the Border {regions_in}", flush=True)
+        if not (len(borders) == 1 and row["refs_equal_ids"] and ids
+                and len(steps) == 1 and lines_in and regions_in):
+            raise AssertionError(f"ocrd {row['page']}: merged PAGE fails "
+                                 "its checks")
+        if row["radon_launches"] == 0 or row["degraded"]:
+            raise AssertionError(f"ocrd {row['page']}: no radon launch or "
+                                 "degraded")
+    # the cropped page: its merged coordinates are the detector's own
+    # moved by the crop's offset, as merging the detector's PAGE-XML with
+    # every point moved by the offset (and no transform) into the scan's
+    # page gives them: both clip in the scan's frame
+    import copy
+
+    moved = copy.deepcopy(per_page[1]["xml"])
+    for el in moved.iter():
+        if el.tag.split("}")[-1] == "Coords":
+            pts = merge.points_to_polygon(el.get("points")) + [x0, y0]
+            el.set("points", merge.polygon_to_points(pts))
+    own = ET.Element(f"{{{ocrd_stub.NS}}}PcGts")
+    own_page = ET.SubElement(own, f"{{{ocrd_stub.NS}}}Page")
+    own_page.set("imageHeight", str(scan.shape[0]))
+    own_page.set("imageWidth", str(scan.shape[1]))
+    merge.merge_detection_into_page(own, moved)
+    want_border, want = _merged_coords(own)
+    got_border, got = _merged_coords(docs[1])
+    shifted = (np.array_equal(got_border, want_border)
+               and len(got) == len(want) and all(
+                   gid == wid and np.array_equal(g, w) and len(gl) == len(wl)
+                   and all(np.array_equal(a, b) for a, b in zip(gl, wl))
+                   for (gid, g, gl), (wid, w, wl) in zip(got, want)))
+    print(f"ocrd: the cropped page's coordinates are the detector's own "
+          f"plus the offset (x, y) = ({x0}, {y0}): {shifted}; "
+          f"{total:.2f} s for both pages through process()", flush=True)
+    if not shifted:
+        raise AssertionError("ocrd: the cropped page's coordinates are not "
+                             "the detector's own plus the offset")
+    if det.degraded:
+        raise AssertionError("ocrd: a page degraded")
+    _no_fallbacks(det, "the OCR-D pages")
+    for row in per_page:
+        del row["xml"]
+    details["ocrd"] = {"pages": per_page, "seconds": total,
+                       "crop_offset_yx": [y0, x0]}
+    return sum(row["radon_launches"] for row in per_page)
+
+
+def _served(det, pages, warm=None):
+    """process_batch over `pages` after one untimed warm-up page:
+    (results, region masks, seconds, Radon launches)."""
+    import torch
+
+    from sbb_textline_detection_tpu_torch.ops import radon
+
+    if warm is not None:
+        det.process_image(*warm)
+    masks = []
+    real = det.host_phase
+
+    def host_phase(st, pre=None):
+        masks.append(st.region_mask)
+        return real(st, pre)
+
+    det.host_phase = host_phase
+    try:
+        torch.cuda.synchronize()
+        radon.launches = 0
+        t0 = time.time()
+        results = list(det.process_batch(iter(pages)))
+        torch.cuda.synchronize()
+        return results, masks, time.time() - t0, radon.launches
+    finally:
+        del det.host_phase
+
+
+def mesh_phase(dev, details, pages):
+    """(a) The serving mesh: max(2, cards) data members (on one card, two
+    members on it), the three SKEWS pages through process_batch under
+    mesh_auto_group, against the unmeshed bundle in groups of the same
+    size: float32 (TF32 off) must give equal region masks and PAGE-XML,
+    bf16 prints the share of differing region-mask pixels. (An A4 page
+    has n > tile_chunk tiles, so the unmeshed page runs in chunks of
+    ceil(n / 2) too: both runs feed cuDNN the same batches, and only the
+    member that runs a chunk differs.) (b) The training
+    mesh: one sharded AdamW step of the full-width dual-head model, batch
+    8, in a world-size-1 NCCL group on a (1, 1) mesh, against the plain
+    step. Returns the Radon launches of the served pages."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sbb_textline_detection_tpu_torch.models import checkpoint, registry
+    from sbb_textline_detection_tpu_torch.models.runner import ModelBundle
+    from sbb_textline_detection_tpu_torch.ops import precision
+    from sbb_textline_detection_tpu_torch.parallel import mesh as mesh_mod
+    from sbb_textline_detection_tpu_torch.pipeline.detector import (
+        DEFAULT_CONFIG, TextlineDetector)
+    from sbb_textline_detection_tpu_torch.training import train
+    from sbb_textline_detection_tpu_torch.utils import synthetic
+
+    cards = torch.cuda.device_count()
+    members = max(2, cards)
+    mesh = mesh_mod.make_mesh([torch.device("cuda", i % cards)
+                               for i in range(members)])
+    print(f"mesh: {members} data members on {cards} card(s): "
+          f"{[str(d) for d in mesh.data_members]}"
+          + (" (one card: its members take turns on it, so no multi-card "
+             "figure comes from this run)" if cards == 1 else ""),
+          flush=True)
+    total_launches = 0
+    out = {"members": [str(d) for d in mesh.data_members], "runs": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        runs = {}
+        for meshed in (False, True):
+            models = ModelBundle.random_init(
+                DEFAULT_CONFIG.runtime, seed=SEED, device=dev, dtype=dtype,
+                dual_head=True, mesh=mesh if meshed else None)
+            flags = {} if meshed else {"pages_per_dispatch": members}
+            det = TextlineDetector(models, _serve_config(**flags))
+            group = det._effective_group_size()
+            if group != members:
+                raise AssertionError(f"mesh {name}: group size {group} != "
+                                     f"{members}")
+            res, masks, sec, launches = _served(det, pages, pages[0])
+            total_launches += launches
+            if det.degraded or any(r.degraded for r in res):
+                raise AssertionError(f"mesh {name}: a page degraded")
+            _no_fallbacks(det, f"the mesh phase's {name} pages")
+            if launches == 0:
+                raise AssertionError(f"mesh {name}: no radon launch")
+            runs[meshed] = (res, masks, sec, launches)
+        (r0, m0, s0, l0), (r1, m1, s1, l1) = runs[False], runs[True]
+        margin = DEFAULT_CONFIG.tiling.margin_ratio
+        tiles = [int(np.prod(models.region.grid_for(
+            r.page_coord[1] - r.page_coord[0],
+            r.page_coord[3] - r.page_coord[2], margin))) for r in r1]
+        shares = [_mask_diff_share(a, ra.page_coord, b, rb.page_coord)
+                  for a, b, ra, rb in zip(m1, m0, r1, r0)]
+        xml_equal = [_xml_body(a) == _xml_body(b) for a, b in zip(r1, r0)]
+        masks_equal = [a.shape == b.shape and bool(np.array_equal(a, b))
+                       for a, b in zip(m1, m0)]
+        out["runs"][name] = {
+            "seconds_unmeshed": s0,
+            "seconds_meshed": s1, "pages_per_s_unmeshed": len(pages) / s0,
+            "pages_per_s_meshed": len(pages) / s1, "mask_diff_share": shares,
+            "masks_equal": masks_equal, "xml_equal": xml_equal,
+            "regions": [len(r.contours) for r in r1], "tiles": tiles,
+            "radon_launches": [l0, l1]}
+        print(f"mesh {name}, {len(pages)} pages of {tiles} tiles in "
+              f"groups of {members}: unmeshed {len(pages) / s0:.3f} pages/s, "
+              f"meshed {len(pages) / s1:.3f} pages/s on "
+              f"{details['card']}; region masks equal {masks_equal}, "
+              f"PAGE-XML equal {xml_equal}, share of differing region-mask "
+              f"pixels {[f'{x:.3g}' for x in shares]}", flush=True)
+        if dtype == torch.float32 and not (all(masks_equal)
+                                           and all(xml_equal)):
+            raise AssertionError("mesh f32: the meshed pages differ from "
+                                 "the unmeshed ones")
+
+    # (b) the training mesh in a world-size-1 NCCL group
+    spec = registry.DUALHEAD_SPEC
+    sd = checkpoint.random_init(spec, torch.Generator().manual_seed(SEED))
+    imgs, labels = synthetic.dualhead_batch(
+        np.random.default_rng(SEED + 3), 8, spec.input_height,
+        spec.input_width)
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    results = {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            pmesh = mesh_mod.make_process_mesh(1, "cuda")
+            # both steps take cuDNN's deterministic algorithms, so that
+            # only the mesh can make them differ
+            torch.backends.cudnn.deterministic = True
+            torch.backends.cudnn.benchmark = False
+            for sharded in (False, True):
+                m = registry.build_module(spec, torch.float32)
+                m.load_state_dict(sd)
+                m.to(dev).train()
+                if sharded:
+                    mesh_mod.shard_module(m, pmesh)
+                step = train.make_train_step(
+                    spec, m, train.make_optimizer(m.parameters()),
+                    mesh=pmesh if sharded else None)
+                with precision.full_f32():
+                    torch.cuda.synchronize()
+                    t0 = time.time()
+                    loss = float(step(torch.from_numpy(imgs).to(dev),
+                                      torch.from_numpy(labels).to(dev)))
+                    torch.cuda.synchronize()
+                    sec = time.time() - t0
+                state = (mesh_mod.gather_state_dict(m, pmesh) if sharded
+                         else m.state_dict())
+                results[sharded] = (loss, {k: v.detach().clone()
+                                           for k, v in state.items()}, sec,
+                                    len(getattr(m, "tp_sharded", ())))
+        finally:
+            (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark) = saved
+            dist.destroy_process_group()
+    (loss0, st0, sec0, _), (loss1, st1, sec1, n_sharded) = (results[False],
+                                                            results[True])
+    loss_rel = abs(loss1 - loss0) / abs(loss0)
+    param_rel = max(float(((st1[k] - v).abs()
+                           / v.abs().clamp_min(1e-30)).max())
+                    for k, v in st0.items())
+    out["train"] = {"loss_plain": loss0, "loss_mesh": loss1,
+                    "loss_rel": loss_rel, "max_param_rel": param_rel,
+                    "step_s_plain": sec0, "step_s_mesh": sec1,
+                    "sharded_params": n_sharded, "batch": 8}
+    print(f"mesh train: one AdamW step of {spec.name} (f32, TF32 off, "
+          f"batch 8 at {spec.input_height}x{spec.input_width}) on the "
+          f"(1, 1) NCCL mesh, {n_sharded} parameters column-parallel: loss "
+          f"{loss1:.7f} vs plain {loss0:.7f} (rel {loss_rel:.3g}), largest "
+          f"relative parameter difference {param_rel:.3g}; step "
+          f"{sec1:.3f} s vs {sec0:.3f} s (first steps, cold)", flush=True)
+    if not (loss_rel <= MESH_TRAIN_RTOL and param_rel <= MESH_TRAIN_RTOL):
+        raise AssertionError(f"mesh train: the (1, 1) mesh step differs "
+                             f"from the plain one (loss rel {loss_rel:.3g},"
+                             f" params {param_rel:.3g}; limit "
+                             f"{MESH_TRAIN_RTOL:g})")
+    if cards >= 2:
+        t0 = time.time()
+        run = subprocess.run(
+            [sys.executable, "-m",
+             "sbb_textline_detection_tpu_torch.parallel.dryrun",
+             "--devices", "2", "--backend", "nccl"], cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        print(run.stdout.strip(), flush=True)
+        if run.returncode != 0:
+            raise AssertionError(f"parallel.dryrun on 2 cards failed: "
+                                 f"{run.stderr[-2000:]}")
+        out["dryrun_seconds"] = time.time() - t0
+    else:
+        print("mesh: parallel.dryrun --devices 2 --backend nccl skipped: "
+              "this machine has one card, and NCCL needs a card per "
+              "process", flush=True)
+    details["mesh"] = out
+    return total_launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--details", help="write the run's details (JSON) "
@@ -2012,6 +2442,8 @@ def _phases(args, dev, details, torch) -> int:
     launches += batch_phase(details, det.models)
     del det
     if not args.only:
+        launches += ocrd_phase(dev, details)
+        launches += mesh_phase(dev, details, pages)
         launches += classic_phase(dev, details)
         train_parity_phase(dev, details)
         dual = train_phase(dev, details)

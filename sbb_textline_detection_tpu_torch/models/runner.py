@@ -33,7 +33,10 @@ TextlineDetector's paths run).
     the raw path and the values equal that path's;
   * `predict_dual_tiled_resident_raw(defer_fetch=True)`: the raw form's
     outputs left on the device (`DeferredFusedRaw`), for the speculative
-    deskew to read before the host takes the region mask.
+    deskew to read before the host takes the region mask;
+  * `mesh=` (parallel/mesh.make_mesh): the weights are replicated onto
+    every data member, and each page's tile chunks are dealt to the
+    members in turn (`_tile_labels`).
 
 Float32 modules run inside `ops/precision.full_f32` (no TF32). Every
 entry point is a `utils/stagetime.device_section`, and every forward adds
@@ -47,6 +50,7 @@ beyond the tile grid; the JAX package's 1-/2-bit transfer packing
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 from typing import Dict, Optional, Tuple
 
@@ -196,16 +200,29 @@ class SegmentationModel:
     """One loaded TpuUnet or ResNet50Unet on a device."""
 
     def __init__(self, spec, state_dict, runtime: RuntimeConfig | None = None,
-                 device="cuda", dtype: torch.dtype | None = None):
+                 device="cuda", dtype: torch.dtype | None = None, mesh=None):
+        """`mesh`: optional parallel/mesh.Mesh. The weights are replicated
+        onto the first device of each of its data rows once, here, and
+        every tiled path spreads a page's tile chunks over those members
+        (_tile_labels); the results come back to `device`. Without a mesh
+        the one member is the model on `device`."""
         self.spec = _as_spec(spec)
         self.runtime = runtime or RuntimeConfig()
         self.device = torch.device(device)
+        self.mesh = mesh
         self.dtype = dtype or getattr(torch, self.runtime.compute_dtype)
         self.module = registry.build_module(self.spec, self.dtype)
         # strict: a checkpoint that does not match the architecture fails
         # here, not as a degraded page later
         self.module.load_state_dict(state_dict)
         self.module.to(self.device).eval()
+        # (device, module) per data member
+        self.members = [(self.device, self.module)]
+        if mesh is not None:
+            self.members = [
+                (dev, self.module if i == 0 and dev == self.device
+                 else copy.deepcopy(self.module).to(dev))
+                for i, dev in enumerate(mesh.data_members)]
         # FLOPs of one forward per sample, by input shape without the batch
         self._flops_per_sample: Dict[tuple, float] = {}
 
@@ -228,20 +245,20 @@ class SegmentationModel:
         return precision.full_f32() if self.computes_f32 \
             else contextlib.nullcontext()
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        """The module's forward on an NCHW batch, inside the TF32 guard.
-        Its FLOPs go to the calling thread's stage ledger: counted on the
-        first forward of each input shape (stagetime.count_flops), then
-        scaled by the batch."""
+    def _logits(self, x: torch.Tensor, member: int = 0) -> torch.Tensor:
+        """The forward of data member `member`'s module on an NCHW batch
+        on its device, inside the TF32 guard. Its FLOPs go to the calling
+        thread's stage ledger: counted on the first forward of each input
+        shape (stagetime.count_flops), then scaled by the batch."""
+        forward = self.members[member][1].forward_nchw
         key = tuple(x.shape[1:])
         per_sample = self._flops_per_sample.get(key)
         with self._f32_guard():
             if per_sample is None:
-                logits, flops = stagetime.count_flops(
-                    self.module.forward_nchw, x)
+                logits, flops = stagetime.count_flops(forward, x)
                 per_sample = self._flops_per_sample[key] = flops / x.shape[0]
             else:
-                logits = self.module.forward_nchw(x)
+                logits = forward(x)
         stagetime.add(0.0, per_sample * x.shape[0])
         return logits
 
@@ -380,25 +397,27 @@ class SegmentationModel:
         return int(other.spec.n_classes)
 
     def _forward_labels(self, batch: torch.Tensor,
-                        tb: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        tb: Optional[torch.Tensor] = None,
+                        member: int = 0) -> torch.Tensor:
         """uint8 labels (n, mh, mw) of a uint8 tile batch, (n, mh, mw) or
-        (n, mh, mw, 3). With per-tile Otsu thresholds `tb`, the model sees
-        channel 0 thresholded as 0.0 / 1.0 on all 3 channels (otsu_copy,
-        main.py:191-193); else the tiles / 255 (main.py:490-503), a plane
-        repeated to 3 channels."""
+        (n, mh, mw, 3), on data member `member`'s device. With per-tile
+        Otsu thresholds `tb`, the model sees channel 0 thresholded as
+        0.0 / 1.0 on all 3 channels (otsu_copy, main.py:191-193); else the
+        tiles / 255 (main.py:490-503), a plane repeated to 3 channels."""
         if tb is not None:
             x = _binarized_plane(batch, tb)[1][:, None].expand(-1, 3, -1, -1)
         else:
             x = batch.to(torch.float32) / 255.0
             x = x.permute(0, 3, 1, 2) if batch.ndim == 4 \
                 else x[:, None].expand(-1, 3, -1, -1)
-        return torch.argmax(self._logits(x), 1).to(torch.uint8)
+        return torch.argmax(self._logits(x, member), 1).to(torch.uint8)
 
     def _forward_pair(self, other: "SegmentationModel", batch: torch.Tensor,
-                      tb: torch.Tensor):
+                      tb: torch.Tensor, member: int = 0):
         """(region labels, textline labels) uint8 (n, mh, mw) of a uint8
         tile batch, (n, mh, mw) or (n, mh, mw, 3), with per-tile Otsu
-        thresholds `tb` (runner.py:483-556 in the JAX package).
+        thresholds `tb` (runner.py:483-556 in the JAX package), on data
+        member `member`'s device.
 
         Dual-head model: one forward on [raw01 (channel 0 / 255), channel 0
         thresholded] and an argmax per head. Classic pair: the region model
@@ -408,10 +427,11 @@ class SegmentationModel:
             plane, ch0 = _binarized_plane(batch, tb)
             h0 = int(self.spec.heads[0])
             rawf = plane.to(torch.float32) / 255.0
-            logits = self._logits(torch.stack([rawf, ch0], 1))
+            logits = self._logits(torch.stack([rawf, ch0], 1), member)
             return (torch.argmax(logits[:, :h0], 1).to(torch.uint8),
                     torch.argmax(logits[:, h0:], 1).to(torch.uint8))
-        return self._forward_labels(batch, tb), other._forward_labels(batch)
+        return (self._forward_labels(batch, tb, member),
+                other._forward_labels(batch, None, member))
 
     # -- tiled segmentation ------------------------------------------------------
     def _tile_labels(self, canvases, boxes, ny: int, nx: int,
@@ -423,12 +443,23 @@ class SegmentationModel:
         outside the crop box (and outside `valid`, a (ch, cw) bool map of
         the canvas pixels that hold page data), take the Otsu threshold
         of channel 0 over the box, gather the ny x nx tiles from the box
-        origin (starts clamp into the canvas). Then `forward(batch, tb)`
-        -> a tuple of uint8 label batches runs page by page in the
+        origin (starts clamp into the canvas). Then `forward(batch, tb,
+        member)` -> a tuple of uint8 label batches runs page by page in the
         `_balanced_chunk` chunks of ONE page's tiles, and each label
         stream is stitched into (K, ny * stride_h, nx * stride_w): every
         output pixel lies in exactly one tile's central slab, so stitching
         is one reshape.
+
+        With d data members (mesh=), a page's chunk is capped at ceil(n /
+        d) tiles as well, so that one page spreads over every member, and
+        its chunks are dealt to the members in turn (chunk j to member j
+        mod d): each goes to its member's device with a non-blocking copy,
+        runs there, and its labels come back to `self.device` in tile
+        order. Where ceil(n / d) lies below the unmeshed chunk, a page's
+        chunks have another size than unmeshed, and its bf16 labels may
+        differ from the unmeshed page's by the argmax tie flips described
+        below (an A4 page's 108 tiles run in chunks of 54 either way on
+        two members).
 
         A chunk never holds tiles of two pages: every forward of a group
         then has the batch size it has when the page is served alone, so
@@ -466,15 +497,20 @@ class SegmentationModel:
         tiles = torch.cat(tiles)                   # (k*n, mh, mw[, 3])
         t_tiles = torch.stack(ts).repeat_interleave(n)
 
-        chunk = _balanced_chunk(n, self.runtime.tile_chunk)
+        d = len(self.members)
+        chunk = _balanced_chunk(n, min(self.runtime.tile_chunk, -(-n // d)))
         streams = None
         for p0 in range(0, k * n, n):
-            for c0 in range(p0, p0 + n, chunk):
+            for j, c0 in enumerate(range(p0, p0 + n, chunk)):
                 c1 = min(c0 + chunk, p0 + n)
-                out = forward(tiles[c0:c1], t_tiles[c0:c1])
+                member = j % d
+                mdev = self.members[member][0]
+                out = forward(tiles[c0:c1].to(mdev, non_blocking=True),
+                              t_tiles[c0:c1].to(mdev, non_blocking=True),
+                              member)
                 streams = streams or [[] for _ in out]
                 for stream, labels in zip(streams, out):
-                    stream.append(labels)
+                    stream.append(labels.to(dev, non_blocking=True))
 
         def stitch(labels):
             slabs = torch.cat(labels)[:, margin:margin + sh,
@@ -528,8 +564,9 @@ class SegmentationModel:
         `margin` of the page border)."""
         canvas, boxes, ny, nx = self._padded_crop(img_u8, margin_ratio)
 
-        def forward(batch, tb):
-            return (self._forward_labels(batch, tb if pre_otsu else None),)
+        def forward(batch, tb, member):
+            return (self._forward_labels(batch, tb if pre_otsu else None,
+                                         member),)
 
         labels, = self._tile_labels([canvas], boxes, ny, nx, margin_ratio,
                                     forward)
@@ -558,7 +595,7 @@ class SegmentationModel:
             raise ValueError("canvas shapes differ")
         canvas_r, canvas_t = self._tile_labels(
             canvases, boxes, ny, nx, margin_ratio,
-            lambda batch, tb: self._forward_pair(other, batch, tb), valid)
+            functools.partial(self._forward_pair, other), valid)
         return [(self._shape_labels(canvas_r[i], int(bh), int(bw), morph,
                                     mask_class, post_morph), canvas_t[i])
                 for i, (_, _, bh, bw) in enumerate(boxes)]
@@ -818,13 +855,14 @@ class ModelBundle:
                 and bool(self.region.spec.heads))
 
     @staticmethod
-    def _from_state(page, region, textline, runtime, device,
-                    dtype) -> "ModelBundle":
+    def _from_state(page, region, textline, runtime, device, dtype,
+                    mesh=None) -> "ModelBundle":
         """Each role a (spec, state_dict) pair; `textline` None means
-        `region` is the dual-head model and serves both roles."""
+        `region` is the dual-head model and serves both roles. Every model
+        takes `mesh`."""
         def build(spec_sd):
             return SegmentationModel(spec_sd[0], spec_sd[1], runtime, device,
-                                     dtype)
+                                     dtype, mesh)
 
         region_model = build(region)
         if textline is None:
@@ -838,7 +876,8 @@ class ModelBundle:
     @staticmethod
     def random_init(runtime: RuntimeConfig | None = None, seed: int = 0,
                     device="cuda", dtype: torch.dtype | None = None,
-                    specs=None, dual_head: bool = False) -> "ModelBundle":
+                    specs=None, dual_head: bool = False,
+                    mesh=None) -> "ModelBundle":
         """Randomly initialized bundle (tests / smoke runs): each model's
         weights are drawn from torch.Generator().manual_seed(seed).
         `specs` maps the roles page / region / textline to specs (default
@@ -858,13 +897,13 @@ class ModelBundle:
 
         return ModelBundle._from_state(
             pair(specs["page"]), pair(specs["region"]),
-            pair(specs["textline"]), runtime, device, dtype)
+            pair(specs["textline"]), runtime, device, dtype, mesh)
 
     @staticmethod
     def from_jax_variables(page, region, textline=None,
                            runtime: RuntimeConfig | None = None,
-                           device="cuda", dtype: torch.dtype | None = None
-                           ) -> "ModelBundle":
+                           device="cuda", dtype: torch.dtype | None = None,
+                           mesh=None) -> "ModelBundle":
         """Bundle from (spec, Flax variable tree) pairs, the trees nested
         dicts of arrays: the page model, the region model and the textline
         model, or with `textline` None, the dual-head model as `region`."""
@@ -874,12 +913,13 @@ class ModelBundle:
 
         return ModelBundle._from_state(state(page), state(region),
                                        state(textline), runtime, device,
-                                       dtype)
+                                       dtype, mesh)
 
     @staticmethod
     def from_dir(model_dir: str, runtime: RuntimeConfig | None = None,
                  device="cuda", model_names=None,
-                 dtype: torch.dtype | None = None) -> "ModelBundle":
+                 dtype: torch.dtype | None = None,
+                 mesh=None) -> "ModelBundle":
         """Load a bundle from `model_dir` (runner.py:1731-1764 in the JAX
         package). A dual-head `.npz` checkpoint (names.dualhead), when
         present, serves both the region and textline roles beside the
@@ -900,7 +940,7 @@ class ModelBundle:
         if os.path.exists(checkpoint.npz_path(model_dir, names.dualhead)):
             return ModelBundle.from_jax_variables(
                 load(names.page), load(names.dualhead), None, runtime,
-                device, dtype)
+                device, dtype, mesh)
         return ModelBundle.from_jax_variables(
             load(names.page), load(names.region), load(names.textline),
-            runtime, device, dtype)
+            runtime, device, dtype, mesh)

@@ -66,10 +66,14 @@ class ConvGN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ph = _same_pad(x.shape[2], 3, self.stride)
         pw = _same_pad(x.shape[3], 3, self.stride)
-        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        x = F.conv2d(x, self.conv.weight.to(self.dtype), stride=self.stride)
+        x = self._conv(F.pad(x, (pw[0], pw[1], ph[0], ph[1])))
         x = group_norm(x.to(torch.float32), self.norm)
         return F.gelu(x, approximate="tanh").to(self.dtype)
+
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv on the padded input (what a tensor-parallel block
+        splits by output channel, parallel/mesh.py)."""
+        return F.conv2d(x, self.conv.weight.to(self.dtype), stride=self.stride)
 
 
 class TpuUnet(nn.Module):

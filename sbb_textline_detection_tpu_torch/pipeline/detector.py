@@ -48,8 +48,9 @@ regions to a failure.
 process_batch pipelines the pages: the device phases of upcoming pages run
 on `runtime.device_phase_workers` threads while the calling thread does
 the host phase of the page before them; with `runtime.pages_per_dispatch`
-above 1 the pages of a group share one page-model forward and one tile
-batch (device_phase_group, on the standard path); else the page-model
+above 1 (raised to a model mesh's data axis under `mesh_auto_group`) the
+pages of a group share one page-model forward and one tile batch
+(device_phase_group, on the standard path); else the page-model
 forwards of up to `runtime.page_box_batch` upcoming pages are folded into
 one on a prefetch thread (_page_box_prefetch). Every thread puts its
 device work on the default stream, so the card runs it in the order of
@@ -776,10 +777,17 @@ class TextlineDetector:
 
     # -- the batch's threads ---------------------------------------------------
     def _effective_group_size(self) -> int:
-        """Pages per device_phase_group: runtime.pages_per_dispatch (the
-        reference raises it to a mesh's data axis under mesh_auto_group;
-        the port has no mesh)."""
-        return max(1, self.config.runtime.pages_per_dispatch)
+        """Pages per device_phase_group: runtime.pages_per_dispatch,
+        auto-raised to the mesh's data-axis size when the models carry a
+        mesh (runtime.mesh_auto_group; detector.py:1053-1067 of the JAX
+        package): the grouped device phase then deals each page's tile
+        chunks over the data members."""
+        rt = self.config.runtime
+        group = max(1, rt.pages_per_dispatch)
+        mesh = getattr(self.models.region, "mesh", None)
+        if rt.mesh_auto_group and mesh is not None:
+            group = max(group, int(mesh.shape["data"]))
+        return group
 
     def _page_box_batch_size(self) -> int:
         """Window size of the batched page-box stage, or 0 when the path

@@ -7,13 +7,15 @@ sbb_textline_detection_tpu/training/train.py).
     eps 1e-8, decoupled weight decay on every parameter, GroupNorm scales
     and biases included);
   * `make_train_step`: one autograd step of a model and its optimizer; a
-    multi-head spec sums the per-head losses over its logit slices;
+    multi-head spec sums the per-head losses over its logit slices; with a
+    process mesh (parallel/mesh.make_process_mesh), the gradients and the
+    loss are averaged over its `data` axis;
   * `Trainer`: float32 master weights with bf16 convs (the Flax module's
-    param_dtype / dtype), checkpoints in the shared `.npz` format;
+    param_dtype / dtype), checkpoints in the shared `.npz` format; with a
+    process mesh, its convs sharded over `model` (parallel/mesh.
+    shard_module) and each rank training on its data slice of the global
+    batch;
   * `synthetic_batch`: stripes-on-paper data for smoke training.
-
-The JAX package shards the step over a (data, model) mesh; the port runs
-on the one device it is given.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from sbb_textline_detection_tpu_torch.models import checkpoint, registry
 from sbb_textline_detection_tpu_torch.models.registry import ModelSpec
+from sbb_textline_detection_tpu_torch.parallel import mesh as mesh_mod
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -49,12 +52,21 @@ def make_optimizer(params, learning_rate: float = 3e-4,
 
 def make_train_step(spec: ModelSpec, model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer,
-                    class_weights: Optional[np.ndarray] = None
+                    class_weights: Optional[np.ndarray] = None, mesh=None
                     ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """Returns step(images (N,H,W,C) float32, labels int) -> loss: one
     forward, backward and optimizer step on the tensors' device. The loss
-    comes back as a detached device tensor (no host sync)."""
+    comes back as a detached device tensor (no host sync).
+
+    With a process `mesh`, the tensors are this rank's data slice, and the
+    gradients and the loss are averaged over the `data` axis before the
+    optimizer step (parallel/mesh.average_over_data); the returned loss is
+    that average. Class weights do not average that way (a weighted mean
+    of slices is not the slices' mean), so they are refused there."""
     heads = tuple(spec.heads)
+    if class_weights is not None and mesh is not None:
+        raise ValueError("class_weights is not supported under a process "
+                         "mesh")
     if class_weights is not None and heads:
         # the heads have disjoint label spaces (region 0-2 vs textline
         # 0-1): one shared table would weight textline pixels with region
@@ -80,6 +92,8 @@ def make_train_step(spec: ModelSpec, model: torch.nn.Module,
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(model(images), labels)
         loss.backward()
+        if mesh is not None:
+            loss = mesh_mod.average_over_data(model.parameters(), mesh, loss)
         optimizer.step()
         return loss.detach()
 
@@ -107,25 +121,51 @@ def synthetic_batch(rng: np.random.Generator, n: int, h: int, w: int,
 class Trainer:
     """A TpuUnet of `spec` on `device`: weights from
     checkpoint.random_init(spec, torch.Generator().manual_seed(seed)),
-    float32 master weights with bf16 convs, AdamW. `device` has no
-    default: training runs where it is told to, or raises."""
+    float32 master weights with convs in `dtype` (bf16 by default), AdamW.
+    `device` has no default: training runs where it is told to, or raises.
+
+    With a process `mesh`, the model is sharded over its `model` axis,
+    step() takes the global batch (the same on every rank) and trains on
+    this rank's data slice of it, and full_state_dict() gathers the
+    weights back (every rank must call it)."""
 
     def __init__(self, spec: ModelSpec, learning_rate: float = 3e-4,
-                 seed: int = 0, *, device: torch.device):
+                 seed: int = 0, *, device: torch.device, mesh=None,
+                 dtype: torch.dtype = torch.bfloat16):
         self.spec = spec
         self.device = torch.device(device)
-        self.model = registry.build_module(spec, torch.bfloat16)
+        self.mesh = mesh
+        self.model = registry.build_module(spec, dtype)
         self.model.load_state_dict(checkpoint.random_init(
             spec, torch.Generator().manual_seed(seed)))
         self.model.to(self.device).train()
+        if mesh is not None:
+            mesh_mod.shard_module(self.model, mesh)
         self.optimizer = make_optimizer(self.model.parameters(),
                                         learning_rate)
-        self._step = make_train_step(spec, self.model, self.optimizer)
+        self._step = make_train_step(spec, self.model, self.optimizer,
+                                     mesh=mesh)
 
     def step(self, images: np.ndarray, labels: np.ndarray) -> torch.Tensor:
         """One step on a host batch; the loss stays on the device."""
+        if self.mesh is not None:
+            rows = mesh_mod.data_slice(self.mesh, len(images))
+            images, labels = images[rows], labels[rows]
         return self._step(torch.from_numpy(images).to(self.device),
                           torch.from_numpy(labels).to(self.device))
+
+    def load_full_state(self, state: dict) -> None:
+        """Load whole (unsharded) weights, sharding them under a mesh."""
+        if self.mesh is None:
+            self.model.load_state_dict(state)
+        else:
+            mesh_mod.load_full_state(self.model, self.mesh, state)
+
+    def full_state_dict(self) -> dict:
+        """The whole weights, gathered over the mesh's model axis."""
+        if self.mesh is None:
+            return self.model.state_dict()
+        return mesh_mod.gather_state_dict(self.model, self.mesh)
 
     def train(self, data_iter: Iterator[Tuple[np.ndarray, np.ndarray]],
               steps: int) -> List[float]:
@@ -135,4 +175,10 @@ class Trainer:
         return torch.stack(losses).tolist() if losses else []
 
     def save(self, path: str):
-        checkpoint.save(path, self.spec, self.model.state_dict())
+        """Write the whole weights; under a mesh every rank gathers them
+        and rank 0 writes."""
+        import torch.distributed as dist
+
+        state = self.full_state_dict()
+        if self.mesh is None or dist.get_rank() == 0:
+            checkpoint.save(path, self.spec, state)

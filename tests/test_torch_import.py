@@ -10,20 +10,26 @@ import pathlib
 import re
 import subprocess
 import sys
+import xml.etree.ElementTree as ET
 
 import numpy as np
 import pytest
 
 from sbb_textline_detection_tpu.core import config as jconfig
+from sbb_textline_detection_tpu.ocrd import merge as jmerge
 from sbb_textline_detection_tpu.ops import contours as jcontours
 from sbb_textline_detection_tpu.ops import morphology as jmorphology
+from sbb_textline_detection_tpu.ops import polygon as jpolygon
 from sbb_textline_detection_tpu.ops import rotate as jrotate
 from sbb_textline_detection_tpu.ops import tiling as jtiling
 from sbb_textline_detection_tpu.pagexml import writer as jwriter
 from sbb_textline_detection_tpu_torch.core import config as tconfig
 from sbb_textline_detection_tpu_torch.models import runner
+from sbb_textline_detection_tpu_torch.ocrd import merge as tmerge
+from sbb_textline_detection_tpu_torch.ocrd import processor as tprocessor
 from sbb_textline_detection_tpu_torch.ops import contours as tcontours
 from sbb_textline_detection_tpu_torch.ops import morphology as tmorphology
+from sbb_textline_detection_tpu_torch.ops import polygon as tpolygon
 from sbb_textline_detection_tpu_torch.ops import rotate as trotate
 from sbb_textline_detection_tpu_torch.ops import tiling as ttiling
 from sbb_textline_detection_tpu_torch.pagexml import writer as twriter
@@ -36,9 +42,11 @@ MODULES = sorted(
         p.relative_to(PKG).with_suffix("").parts).replace(".__init__", "")
     for p in PKG.rglob("*.py"))
 # h5py too: the port reads Keras .h5 files only inside the functions that
-# need it, and the card's machine may not have it
+# need it, and the card's machine may not have it; the OCR-D framework and
+# triton are optional, and nothing starts a process group at import
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "sbb_textline_detection_tpu",
-           "h5py")
+           "h5py", "ocrd", "ocrd_modelfactory", "ocrd_models", "ocrd_utils",
+           "triton")
 
 
 def test_port_imports_with_jax_blocked():
@@ -50,6 +58,8 @@ def test_port_imports_with_jax_blocked():
             f"spec = importlib.util.spec_from_file_location('chip_smoke', "
             f"{str(SMOKE)!r})\n"
             "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n"
             "print('ok')\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
@@ -160,10 +170,53 @@ def _check_rotate_mask_host():
         assert got.any()
 
 
+def _check_polygon():
+    rng = np.random.default_rng(13)
+    for _ in range(20):
+        poly = rng.integers(0, 60, (int(rng.integers(3, 9)), 2)).astype(float)
+        for name in ("convex_hull", "make_valid"):
+            np.testing.assert_array_equal(getattr(tpolygon, name)(poly),
+                                          getattr(jpolygon, name)(poly))
+        for name in ("is_convex", "is_simple", "polygon_area_signed"):
+            assert getattr(tpolygon, name)(poly) == \
+                getattr(jpolygon, name)(poly)
+
+
+def _merged_page_bytes(merge):
+    """A detection with a region across the Border, a line inside it and a
+    region outside it, merged through a translation."""
+    ns = "{http://schema.primaresearch.org/PAGE/gts/pagecontent/2019-07-15}"
+    target = ET.Element(ns + "PcGts")
+    page = ET.SubElement(target, ns + "Page")
+    page.set("imageWidth", "800")
+    page.set("imageHeight", "1000")
+    det = ET.fromstring(
+        "<PcGts><Page><Border><Coords points='50,50 750,50 750,950 50,950'"
+        "/></Border><ReadingOrder><OrderedGroup id='ro'/></ReadingOrder>"
+        "<TextRegion id='r0'><Coords points='600,100 790,100 790,400 "
+        "600,400'/><TextLine id='l0'><Coords points='610,120 780,120 "
+        "780,160 610,160'/></TextLine></TextRegion><TextRegion id='r1'>"
+        "<Coords points='760,960 790,960 790,990 760,990'/></TextRegion>"
+        "</Page></PcGts>")
+    merge.merge_detection_into_page(
+        target, det, transform=np.asarray([[1, 0, 5], [0, 1, -7], [0, 0, 1]],
+                                          float))
+    merge.add_processing_step_metadata(target, executable="x", version="1",
+                                       step="s", parameters={"model": "m"})
+    return ET.tostring(target)
+
+
 @pytest.mark.parametrize("what", ["config", "pagexml", "contours", "tiling",
-                                  "morphology_host", "rotate_mask_host"])
+                                  "morphology_host", "rotate_mask_host",
+                                  "polygon", "ocrd_merge"])
 def test_copies_match_jax_package(what, tmp_path, monkeypatch):
-    if what == "tiling":
+    if what == "polygon":
+        _check_polygon()
+    elif what == "ocrd_merge":
+        got = _merged_page_bytes(tmerge)
+        assert got == _merged_page_bytes(jmerge)
+        assert b"r0" in got and b"r1" not in got
+    elif what == "tiling":
         _check_tiling()
     elif what == "morphology_host":
         _check_morphology_host(monkeypatch)
@@ -189,7 +242,8 @@ def test_copies_match_jax_package(what, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("fn", [
     runner.SegmentationModel.__init__, runner.ModelBundle.random_init,
-    runner.ModelBundle.from_jax_variables, runner.ModelBundle.from_dir],
+    runner.ModelBundle.from_jax_variables, runner.ModelBundle.from_dir,
+    tprocessor.OcrdSbbTextlineDetectorRecognize.__init__],
     ids=lambda f: f.__qualname__)
 def test_library_api_defaults_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
