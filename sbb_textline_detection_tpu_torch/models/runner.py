@@ -204,11 +204,15 @@ class SegmentationModel:
         """`mesh`: optional parallel/mesh.Mesh. The weights are replicated
         onto the first device of each of its data rows once, here, and
         every tiled path spreads a page's tile chunks over those members
-        (_tile_labels); the results come back to `device`. Without a mesh
-        the one member is the model on `device`."""
+        (_tile_labels); the results come back to `device`. Every other
+        forward runs the model on `device`. Without a mesh the one member
+        is the model on `device`."""
         self.spec = _as_spec(spec)
         self.runtime = runtime or RuntimeConfig()
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # "cuda" names the current card; a mesh lists cards by index
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.mesh = mesh
         self.dtype = dtype or getattr(torch, self.runtime.compute_dtype)
         self.module = registry.build_module(self.spec, self.dtype)
@@ -245,12 +249,15 @@ class SegmentationModel:
         return precision.full_f32() if self.computes_f32 \
             else contextlib.nullcontext()
 
-    def _logits(self, x: torch.Tensor, member: int = 0) -> torch.Tensor:
+    def _logits(self, x: torch.Tensor,
+                member: Optional[int] = None) -> torch.Tensor:
         """The forward of data member `member`'s module on an NCHW batch
-        on its device, inside the TF32 guard. Its FLOPs go to the calling
+        on its device (of the model on `device` when `member` is None),
+        inside the TF32 guard. Its FLOPs go to the calling
         thread's stage ledger: counted on the first forward of each input
         shape (stagetime.count_flops), then scaled by the batch."""
-        forward = self.members[member][1].forward_nchw
+        forward = (self.module if member is None
+                   else self.members[member][1]).forward_nchw
         key = tuple(x.shape[1:])
         per_sample = self._flops_per_sample.get(key)
         with self._f32_guard():

@@ -92,13 +92,17 @@ def _orient(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
     return np.where(np.abs(v) < 1e-12, 0, np.sign(v))
 
 
-def is_simple(pts: np.ndarray, block: int = 256) -> bool:
+# edges that is_simple tests at a time against every later edge
+_SIMPLE_BLOCK = 256
+
+
+def is_simple(pts: np.ndarray) -> bool:
     """True if no two non-adjacent edges properly intersect (shapely
     `is_valid` up to degenerate touch cases).
 
     The JAX package tests every pair of edges in a Python loop; this is
-    the same predicate on the same float64 arithmetic, vectorized: `block`
-    edges at a time against every later edge, and only the pairs whose
+    the same predicate on the same float64 arithmetic, vectorized:
+    _SIMPLE_BLOCK edges at a time against every later edge, and only the pairs whose
     bounding boxes meet (a proper crossing lies inside both boxes). A
     region contour of a full page has thousands of vertices, and the loop
     then takes minutes."""
@@ -109,13 +113,14 @@ def is_simple(pts: np.ndarray, block: int = 256) -> bool:
     a, b = pts, np.roll(pts, -1, axis=0)        # edge i runs a[i] -> b[i]
     lo, hi = np.minimum(a, b), np.maximum(a, b)
     j = np.arange(n)[None, :]
-    for i0 in range(0, n, block):
-        i = np.arange(i0, min(i0 + block, n))[:, None]
+    for i0 in range(0, n, _SIMPLE_BLOCK):
+        rows = slice(i0, i0 + _SIMPLE_BLOCK)
+        i = np.arange(n)[rows, None]
         # later edges that share no vertex with edge i
         cand = (j > i + 1) & ~((i == 0) & (j == n - 1))
         for d in (0, 1):
-            cand &= ((lo[i0:i0 + block, None, d] <= hi[None, :, d])
-                     & (lo[None, :, d] <= hi[i0:i0 + block, None, d]))
+            cand &= ((lo[rows, None, d] <= hi[None, :, d])
+                     & (lo[None, :, d] <= hi[rows, None, d]))
         ii, jj = np.nonzero(cand)
         if not ii.size:
             continue

@@ -121,7 +121,7 @@ def synthetic_batch(rng: np.random.Generator, n: int, h: int, w: int,
 class Trainer:
     """A TpuUnet of `spec` on `device`: weights from
     checkpoint.random_init(spec, torch.Generator().manual_seed(seed)),
-    float32 master weights with convs in `dtype` (bf16 by default), AdamW.
+    float32 master weights with bf16 convs, AdamW.
     `device` has no default: training runs where it is told to, or raises.
 
     With a process `mesh`, the model is sharded over its `model` axis,
@@ -130,12 +130,11 @@ class Trainer:
     weights back (every rank must call it)."""
 
     def __init__(self, spec: ModelSpec, learning_rate: float = 3e-4,
-                 seed: int = 0, *, device: torch.device, mesh=None,
-                 dtype: torch.dtype = torch.bfloat16):
+                 seed: int = 0, *, device: torch.device, mesh=None):
         self.spec = spec
         self.device = torch.device(device)
         self.mesh = mesh
-        self.model = registry.build_module(spec, dtype)
+        self.model = registry.build_module(spec, torch.bfloat16)
         self.model.load_state_dict(checkpoint.random_init(
             spec, torch.Generator().manual_seed(seed)))
         self.model.to(self.device).train()

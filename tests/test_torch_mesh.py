@@ -106,6 +106,25 @@ def test_make_mesh_shapes_and_errors():
             mesh_mod.make_mesh()
 
 
+def test_untiled_forward_runs_the_model_on_its_device():
+    """A mesh whose first member lies on another device than the model:
+    the forwards that no mesh spreads (whole image, page box) run the
+    model's own module on its device, as unmeshed. The members here sit
+    on the meta device, where a forward on a CPU tensor fails."""
+    spec = runner._as_spec(TINY)
+    state = checkpoint.random_init(spec, torch.Generator().manual_seed(0))
+    plain = runner.SegmentationModel(spec, state, device="cpu",
+                                     dtype=torch.float32)
+    meshed = runner.SegmentationModel(
+        spec, state, device="cpu", dtype=torch.float32,
+        mesh=mesh_mod.make_mesh(["meta", "meta"]))
+    assert [dev for dev, _ in meshed.members] == [torch.device("meta")] * 2
+    assert all(m is not meshed.module for _, m in meshed.members)
+    img = np.random.default_rng(0).integers(0, 256, (50, 70, 3), np.uint8)
+    np.testing.assert_array_equal(meshed.predict_whole_small(img),
+                                  plain.predict_whole_small(img))
+
+
 def test_sharded_tiled_matches_single_device_stub(mesh8, jmesh8):
     """Pointwise stub network: the meshed and unmeshed tiled paths equal
     the thresholded image, as the JAX package's sharded path does. A
