@@ -43,6 +43,17 @@ Phases (any failure raises and the script exits non-zero):
      switch: this script sets no global one); one page more with every
      fused call made to raise, which the separate per-model rung must
      serve with the same region mask and PAGE-XML;
+ 4a. the warm start (warm_phase): this script runs twice more, in fresh
+     processes (`--warm-child cold` and `--warm-child warm`), each with
+     the bundle and config of phase 4, serving its 3 pages by
+     process_image one at a time; the warm child first calls
+     TextlineDetector.warm_up(3508, 2480). Both must give phase 4's
+     PAGE-XML page for page with no fallback and no degraded page, and
+     warm_up must return the expected job keys and launch the Radon
+     kernel. Printed: warm_up's seconds by job, each child's first,
+     second and third page, cold against after warm_up. Then warm_up in
+     this process under DEFAULT_CONFIG, without and with
+     warm_fallback_programs, job by job;
   5. the fallback ladder on the full-width dual-head bundle and the skew
      +8 page (fallback_phase): the raw path against the canvas-resident
      and the crop-upload rung (raw_upload / resident_upload off; share of
@@ -128,13 +139,16 @@ Phases (any failure raises and the script exits non-zero):
      --backend nccl` runs too.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. The kernel line's launches add up phases
-4, 5, 6 (the flags), 7 (a)-(d), 9 and 10. With --only batch, phases 4
-(classic bundle), 5, 8, 9 and 10 are left out (a shorter run while working
-on the batch; the default runs everything). With --details PATH, the run's details
+4, 4a (its children's too), 5, 6 (the flags), 7 (a)-(d), 9 and 10. With
+--only batch, phases 4 (classic bundle), 4a, 5, 8, 9 and 10 are left out
+(a shorter run while working on the batch; the default runs everything). With --details PATH, the run's details
 (ptxas report, per-page stage timings, kernel times) are written there as
 JSON. After the timed pages, the second page runs once more under
 torch.profiler for its device time by op and the Radon kernel's device
-time (its launches are not counted in the kernel line).
+time (its launches are not counted in the kernel line); a spy keeps the
+inputs of that page's sweeps, on which the kernel is held against its
+plain version, and the kernel, the plain version, the library form and
+the bound are summed.
 """
 
 import argparse
@@ -228,6 +242,10 @@ OCRD_CROP = (120, 90)
 # mesh_phase: the limit of the (1, 1) training mesh against the plain
 # step (relative, of the loss and of every parameter)
 MESH_TRAIN_RTOL = 1e-6
+# warm_phase: the page size warm_up is asked for (the smoke pages'), and
+# the seconds a child process may take
+WARM_HW = (3508, 2480)
+WARM_CHILD_TIMEOUT = 420
 
 
 def _serve_config(**flags):
@@ -504,27 +522,43 @@ def unet_phase(dev, details):
           flush=True)
 
 
-def pipeline_phase(dev, details):
-    """process_batch over 3 full-width A4 pages through the kernel."""
-    import xml.etree.ElementTree as ET
-
+def _smoke_pages():
+    """The serving smoke's 3 synthetic A4 pages (SKEWS), as (image, name)."""
     import numpy as np
-    import torch
 
-    from sbb_textline_detection_tpu_torch.models.runner import ModelBundle
-    from sbb_textline_detection_tpu_torch.ops import radon
-    from sbb_textline_detection_tpu_torch.pipeline.detector import (
-        DEFAULT_CONFIG, TextlineDetector)
     from sbb_textline_detection_tpu_torch.utils import synthetic
 
-    models = ModelBundle.random_init(DEFAULT_CONFIG.runtime, seed=SEED,
-                                     device=dev, dual_head=True)
-    det = TextlineDetector(models, _serve_config())
     pages = []
     for i, skew in enumerate(SKEWS):
         img, _ = synthetic.make_page(np.random.default_rng(SEED + i),
                                      3508, 2480, skew_deg=skew)
         pages.append((img, f"a4_skew{skew:+.0f}.png"))
+    return pages
+
+
+def _serving_bundle(dev):
+    """The serving smoke's bundle: the page and dual-head TpuUnet at
+    FLAGSHIP widths, random weights from SEED."""
+    from sbb_textline_detection_tpu_torch.core.config import DEFAULT_CONFIG
+    from sbb_textline_detection_tpu_torch.models.runner import ModelBundle
+
+    return ModelBundle.random_init(DEFAULT_CONFIG.runtime, seed=SEED,
+                                   device=dev, dual_head=True)
+
+
+def pipeline_phase(dev, details):
+    """process_batch over 3 full-width A4 pages through the kernel.
+    Returns (Radon launches, the detector, the pages, their results)."""
+    import xml.etree.ElementTree as ET
+
+    import torch
+
+    from sbb_textline_detection_tpu_torch.ops import radon
+    from sbb_textline_detection_tpu_torch.pipeline.detector import (
+        TextlineDetector)
+
+    det = TextlineDetector(_serving_bundle(dev), _serve_config())
+    pages = _smoke_pages()
 
     radon.launches = 0
     secs, results = [], []
@@ -569,7 +603,7 @@ def pipeline_phase(dev, details):
     print(f"per-page seconds excluding the first: "
           f"{', '.join(f'{s:.2f}' for s in warm)} "
           f"(mean {sum(warm) / len(warm):.2f})", flush=True)
-    return launches, det, pages
+    return launches, det, pages, results
 
 
 def _no_fallbacks(det, what):
@@ -756,22 +790,91 @@ def _print_profile(what, wall, device, rows, kernels):
 
 def profile_phase(det, page, details):
     """One more pass of `page` under torch.profiler; the Radon kernel's
-    device ms on it."""
+    device ms on it. A spy on ops/radon.radon_pairs keeps the inputs of
+    the page's sweeps, on which the kernel, its plain version, the library
+    form and the bound are then summed (_page_sweeps)."""
     from sbb_textline_detection_tpu_torch.ops import radon
 
+    real = radon.radon_pairs
+    sweeps = []
+
+    def spy(canvases, angles):
+        sweeps.append((canvases, angles))
+        return real(canvases, angles)
+
     before = radon.launches
-    wall, device, rows, kernels = _profiled(
-        lambda: det.process_image(*page))
+    radon.radon_pairs = spy
+    try:
+        wall, device, rows, kernels = _profiled(
+            lambda: det.process_image(*page))
+    finally:
+        radon.radon_pairs = real
+    launched = radon.launches - before
     radon_ms = sum(ms for k, ms in kernels.items() if "radon" in k)
     details["profile"] = {"page": page[1], "wall_s": wall,
                           "device_s": device, "top_ops": rows[:25],
                           "radon_kernel_ms": radon_ms,
-                          "radon_launches": radon.launches - before}
+                          "radon_launches": launched}
     _print_profile(page[1], wall, device, rows, kernels)
     print(f"  the Radon kernel: {radon_ms:.3f} ms of device time over "
-          f"{radon.launches - before} launches on this page", flush=True)
+          f"{launched} launches on this page", flush=True)
     if radon_ms <= 0:
         raise RuntimeError("the profile shows no Radon kernel time")
+    if len(sweeps) != launched:
+        raise AssertionError(f"the spy saw {len(sweeps)} sweeps, the "
+                             f"kernel counted {launched} launches")
+    details["profile"]["sweeps"] = _page_sweeps(sweeps, radon_ms)
+
+
+def _page_sweeps(sweeps, device_ms):
+    """The profiled page's sweeps, each on its own recorded inputs: the
+    kernel held against its plain version (rtol 1e-4, atol 1e-2), and the
+    plain version (CUDA events, 1 call), the library form
+    (_radon_library_ms) and the bound (_radon_bound), each summed over
+    the page's sweeps, beside the kernel's device time under the profiler
+    (`device_ms`). `launch_ms` sums CUDA-event times of 5 back-to-back
+    launches of the wrapper a sweep: on these sparse canvases the host's
+    launch path, not the kernel, sets it."""
+    import collections
+
+    import torch
+
+    from sbb_textline_detection_tpu_torch.ops import radon, radon_bench
+
+    row = {"launches": len(sweeps), "ms": device_ms, "launch_ms": 0.0,
+           "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "max_abs_err": 0.0, "set_pixels": 0}
+    sides = collections.Counter()
+    shapes = collections.Counter()
+    for canv, angles in sweeps:
+        cosv, sinv = radon.angle_cos_sin(angles)
+        got = radon.radon_pairs_cuda(canv, cosv, sinv)
+        want = radon.radon_pairs_plain(canv, cosv, sinv)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-2)
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 float((got - want).abs().max()))
+        row["launch_ms"] += radon_bench.cuda_time(
+            lambda: radon.radon_pairs_cuda(canv, cosv, sinv), 5)
+        row["plain_ms"] += radon_bench.cuda_time(
+            lambda: radon.radon_pairs_plain(canv, cosv, sinv), 1)
+        row["library_ms"] += _radon_library_ms(canv, cosv, sinv)
+        bound, side = _radon_bound(canv, int(angles.shape[0]))
+        row["bound_ms"] += bound
+        sides[side] += 1
+        shapes[f"{canv.shape[0]} x {angles.shape[0]} at "
+               f"{canv.shape[1]}"] += 1
+        row["set_pixels"] += int((canv != 0).sum())
+    row["bound_by"] = sides.most_common(1)[0][0] if sides else None
+    row["shapes"] = dict(shapes)
+    print(f"  its {row['launches']} sweeps ({dict(shapes)}, "
+          f"{row['set_pixels']} set pixels) on their own inputs, summed: "
+          f"kernel {row['ms']:.4f} ms on the device (back-to-back "
+          f"launches {row['launch_ms']:.4f} ms by CUDA events), plain "
+          f"{row['plain_ms']:.3f} ms, "
+          f"library (2 f32 bmm) {row['library_ms']:.3f} ms, bound "
+          f"{row['bound_ms']:.4g} ms ({dict(sides)}), max |err| "
+          f"{row['max_abs_err']:.3g} (rtol 1e-4, atol 1e-2)", flush=True)
+    return row
 
 
 def _device_busy(fn):
@@ -2375,6 +2478,170 @@ def mesh_phase(dev, details, pages):
     return total_launches
 
 
+def _warm_keys(cfg, region):
+    """The job keys warm_up must return for the serving smoke's bundle at
+    WARM_HW under `cfg` (the raw path primary): the fixed jobs and one
+    raw_single_<w> per crop-grid bucket from the typical A4 crop (8 tile
+    strides) to the whole working width."""
+    import numpy as np
+
+    from sbb_textline_detection_tpu_torch.pipeline import stages
+
+    th, tw = stages.working_dims(np.zeros(WARM_HW + (3,), np.uint8), cfg)
+    mw = region.input_hw[1]
+    sw = mw - 2 * int(cfg.tiling.margin_ratio * mw)
+    widths = {min(tw, nx * sw)
+              for nx in range(-(-min(tw, 8 * sw) // sw), -(-tw // sw) + 1)}
+    return ({"page_model", "dual_multi", "dual_single", "deskew",
+             "headless", "fullfused"}
+            | {f"raw_single_{w}" for w in widths})
+
+
+def warm_child(mode, dev):
+    """One child process of warm_phase (`--warm-child warm|cold`): the
+    serving smoke's bundle and config; with "warm", warm_up(*WARM_HW)
+    first; then the 3 pages by process_image, one at a time, each timed
+    to a synchronize. Returns what the parent checks and prints."""
+    import hashlib
+
+    import torch
+
+    from sbb_textline_detection_tpu_torch.ops import radon
+    from sbb_textline_detection_tpu_torch.pipeline.detector import (
+        TextlineDetector)
+    from sbb_textline_detection_tpu_torch.utils import host_library_available
+
+    if not host_library_available():
+        raise RuntimeError("the host geometry library does not load")
+    pages = _smoke_pages()
+    t0 = time.time()
+    det = TextlineDetector(_serving_bundle(dev), _serve_config())
+    torch.cuda.synchronize()
+    out = {"mode": mode, "bundle_s": time.time() - t0}
+    if mode == "warm":
+        radon.launches = 0
+        t0 = time.time()
+        out["warm_up"] = det.warm_up(*WARM_HW)
+        out["warm_up_s"] = time.time() - t0
+        out["warm_up_launches"] = radon.launches
+        print(f"warm child: warm_up {out['warm_up_s']:.3f} s, "
+              f"{out['warm_up_launches']} radon launches: "
+              + ", ".join(f"{k} {v:.3f} s"
+                          for k, v in out["warm_up"].items()), flush=True)
+    out.update(page_s=[], xml_sha256=[], regions=[])
+    radon.launches = 0
+    for page in pages:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = det.process_image(*page)
+        torch.cuda.synchronize()
+        out["page_s"].append(time.time() - t0)
+        out["xml_sha256"].append(hashlib.sha256(_xml_body(res)).hexdigest())
+        out["regions"].append(len(res.contours))
+        print(f"{mode} child: {page[1]}: {out['page_s'][-1]:.3f} s, "
+              f"{len(res.contours)} regions", flush=True)
+    out.update(page_launches=radon.launches, fallbacks=dict(det.fallbacks),
+               degraded=det.degraded)
+    return out
+
+
+def warm_phase(details, models, results):
+    """The warm start: two fresh processes of this script (a fresh process
+    is the only way to see a cold CUDA context), one that serves the 3
+    smoke pages cold and one that calls warm_up(*WARM_HW) first; both
+    must give the PAGE-XML of pipeline_phase's `results` page for page,
+    with no fallback and no degraded page, and warm_up must return the
+    expected keys and launch the Radon kernel. Then, here, warm_up under
+    DEFAULT_CONFIG with and without warm_fallback_programs. Returns the
+    Radon launches of all of it."""
+    import dataclasses
+    import hashlib
+
+    from sbb_textline_detection_tpu_torch.core.config import DEFAULT_CONFIG
+    from sbb_textline_detection_tpu_torch.ops import radon
+    from sbb_textline_detection_tpu_torch.pipeline.detector import (
+        TextlineDetector)
+
+    want = [hashlib.sha256(_xml_body(r)).hexdigest() for r in results]
+    runs = {}
+    for mode in ("cold", "warm"):
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--warm-child",
+             mode], capture_output=True, text=True, cwd=ROOT,
+            timeout=WARM_CHILD_TIMEOUT)
+        lines = proc.stdout.splitlines()
+        for line in lines[:-1]:
+            print(f"  {line}", flush=True)
+        if proc.returncode != 0 or not lines:
+            raise RuntimeError(f"warm child {mode!r} exited "
+                               f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+        run = runs[mode] = json.loads(lines[-1])
+        run["process_s"] = time.time() - t0
+        if run["xml_sha256"] != want:
+            raise AssertionError(
+                f"{mode} child: PAGE-XML differs from the batch's on pages "
+                f"{[i for i, (a, b) in enumerate(zip(run['xml_sha256'], want)) if a != b]}"
+                f" (regions {run['regions']} against "
+                f"{[len(r.contours) for r in results]})")
+        if run["fallbacks"] or run["degraded"]:
+            raise AssertionError(f"{mode} child fell back "
+                                 f"{run['fallbacks']} or degraded "
+                                 f"{run['degraded']} page(s)")
+    warm, cold = runs["warm"], runs["cold"]
+    if set(warm["warm_up"]) != _warm_keys(_serve_config(), models.region):
+        raise AssertionError(f"warm_up returned {sorted(warm['warm_up'])}")
+    if warm["warm_up_launches"] == 0:
+        raise AssertionError("warm_up never launched the radon kernel")
+    launches = (warm["warm_up_launches"] + warm["page_launches"]
+                + cold["page_launches"])
+
+    # here, after every path has run: warm_up under DEFAULT_CONFIG, then
+    # with warm_fallback_programs (the canvas-resident rung and the host
+    # sweep on top)
+    here = {}
+    for flag in (False, True):
+        cfg = dataclasses.replace(DEFAULT_CONFIG, runtime=dataclasses.replace(
+            DEFAULT_CONFIG.runtime, warm_fallback_programs=flag))
+        det = TextlineDetector(models, cfg)
+        radon.launches = 0
+        t0 = time.time()
+        timings = det.warm_up(*WARM_HW)
+        here[flag] = {"seconds": time.time() - t0, "jobs": timings,
+                      "radon_launches": radon.launches}
+        launches += radon.launches
+        if set(timings) != _warm_keys(cfg, models.region):
+            raise AssertionError(f"warm_up returned {sorted(timings)}")
+        if det.fallbacks or det.degraded:
+            raise AssertionError(f"warm_up counted {dict(det.fallbacks)} "
+                                 f"and {det.degraded} degraded")
+    details["warm"] = {"children": runs, "here": {
+        "default": here[False], "warm_fallback_programs": here[True]}}
+
+    print(f"warm start: warm_up {warm['warm_up_s']:.3f} s in a fresh "
+          f"process ({warm['warm_up_launches']} radon launches): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in warm["warm_up"].items()),
+          flush=True)
+    for name, run in (("cold", cold), ("after warm_up", warm)):
+        p = run["page_s"]
+        print(f"warm start, {name}: first page {p[0]:.3f} s, second "
+              f"{p[1]:.3f} s, third {p[2]:.3f} s, first - third "
+              f"{p[0] - p[2]:.3f} s (bundle {run['bundle_s']:.3f} s, "
+              f"process {run['process_s']:.1f} s)", flush=True)
+    print(f"warm start: first page cold {cold['page_s'][0]:.3f} s against "
+          f"{warm['page_s'][0]:.3f} s after warm_up; PAGE-XML equal to the "
+          f"batch's on 3 of 3 pages in both children, 0 fallbacks, 0 "
+          f"degraded", flush=True)
+    for flag, name in ((False, "DEFAULT_CONFIG"),
+                       (True, "with warm_fallback_programs")):
+        h = here[flag]
+        print(f"warm_up here, {name}: {h['seconds']:.3f} s, "
+              f"{h['radon_launches']} radon launches: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in h["jobs"].items()),
+              flush=True)
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--details", help="write the run's details (JSON) "
@@ -2382,6 +2649,9 @@ def main() -> int:
     parser.add_argument("--only", choices=["batch"], help="a shorter run: "
                         "leave out the fallback ladder, the classic bundle "
                         "and training")
+    parser.add_argument("--warm-child", choices=["warm", "cold"],
+                        help="run as one of warm_phase's child processes "
+                        "and print its result as the last line")
     args = parser.parse_args()
     try:
         import torch
@@ -2399,6 +2669,11 @@ def main() -> int:
         print(f"chip_smoke: the port is not beside this script ({exc})",
               file=sys.stderr)
         return 1
+    if args.warm_child:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        print(json.dumps(warm_child(args.warm_child, dev)), flush=True)
+        return 0
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2433,9 +2708,10 @@ def _phases(args, dev, details, torch) -> int:
     kernel = kernel_phase(dev, details)
     deskew_phase(dev, details)
     unet_phase(dev, details)
-    launches, det, pages = pipeline_phase(dev, details)
+    launches, det, pages, results = pipeline_phase(dev, details)
     profile_phase(det, pages[1], details)
     if not args.only:
+        launches += warm_phase(details, det.models, results)
         launches += fallback_phase(details, det.models, pages[1])
     radon_busy_phase(det, pages[1], details)
     launches += flags_phase(details, det.models, pages)

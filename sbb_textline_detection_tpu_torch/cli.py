@@ -3,7 +3,9 @@
 `python -m sbb_textline_detection_tpu_torch.cli -i IMAGE -o OUT_DIR
 -m MODEL_DIR` mirrors the reference CLI (upstream main.py:2162-2171):
 `-i` may be a directory (its pages run as one pipelined batch,
-TextlineDetector.process_batch, with the models loaded once);
+TextlineDetector.process_batch, with the models loaded once; with more
+than one page, TextlineDetector.warm_up first runs every device path at
+the first page's shape and `[warm-up X.Xs]` goes to stderr);
 `--synthetic-models` uses randomly initialized models (the
 page and dual-head TpuUnets); `-m` reads a directory of checkpoints
 through ModelBundle.from_dir: the page and dual-head `.npz` files of the
@@ -19,6 +21,7 @@ page's FLOPs); `--profile DIR` wraps the run in a torch.profiler trace
 
 from __future__ import annotations
 
+import itertools
 import os
 import sys
 import time
@@ -92,8 +95,18 @@ def main(image, out, model, synthetic_models, profile, timings, device):
     else:
         paths = [image]
     with profiling.trace(profile):
+        pages = ((load_image(p), p) for p in paths)
+        if len(paths) > 1:
+            # the first pages of a batch should not pay the cold start:
+            # warm every device path at the first page's shape
+            first = load_image(paths[0])
+            t0 = time.time()
+            detector.warm_up(first.shape[0], first.shape[1])
+            click.echo(f"[warm-up {time.time() - t0:.1f}s]", err=True)
+            pages = itertools.chain(
+                [(first, paths[0])], ((load_image(p), p) for p in paths[1:]))
         t0 = time.time()
-        results = detector.process_batch((load_image(p), p) for p in paths)
+        results = detector.process_batch(pages)
         for path, res in zip(paths, results):
             f_name = os.path.splitext(os.path.basename(path))[0]
             xml_path = res.write(out, f_name)

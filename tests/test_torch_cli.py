@@ -1,6 +1,7 @@
 """The port's serving CLI runs where it is told: without a CUDA card it
 stops unless `--device cpu` is given, and never moves to the CPU on its
-own."""
+own. A directory of several pages warms the detector up once, at the
+first page's shape, before the batch; a single file does not."""
 
 import numpy as np
 import pytest
@@ -27,7 +28,14 @@ def no_cuda(monkeypatch):
 
 
 @pytest.fixture
-def stub_pipeline(monkeypatch):
+def detector_calls():
+    """What the stub detector was asked: warm_up's (height, width) and the
+    pages process_batch received, in order."""
+    return []
+
+
+@pytest.fixture
+def stub_pipeline(monkeypatch, detector_calls):
     """Record the device the bundle is built on; skip the pages."""
     seen = []
 
@@ -39,7 +47,13 @@ def stub_pipeline(monkeypatch):
         def __init__(self, models, config):
             assert models == "bundle"
 
+        def warm_up(self, height, width):
+            detector_calls.append(("warm_up", height, width))
+            return {}
+
         def process_batch(self, pages):
+            for img, name in pages:
+                detector_calls.append(("page", img.shape[:2], name))
             return iter(())
 
     monkeypatch.setattr(runner.ModelBundle, "random_init",
@@ -84,3 +98,34 @@ def test_bad_device_name_exits_nonzero(page, stub_pipeline):
                                         "--device", "no-such-device"])
     assert res.exit_code == 2
     assert stub_pipeline == []
+
+
+def test_directory_warms_up_once_at_the_first_page(tmp_path, stub_pipeline,
+                                                   detector_calls):
+    pages = tmp_path / "pages"
+    pages.mkdir()
+    Image.fromarray(np.full((40, 30, 3), 240, np.uint8)).save(
+        str(pages / "a.png"))
+    Image.fromarray(np.full((50, 20, 3), 240, np.uint8)).save(
+        str(pages / "b.png"))
+    (tmp_path / "out").mkdir()
+    res = CliRunner().invoke(cli.main, ["-i", str(pages), "-o",
+                                        str(tmp_path / "out"),
+                                        "--synthetic-models",
+                                        "--device", "cpu"])
+    assert res.exit_code == 0, res.output
+    assert detector_calls == [
+        ("warm_up", 40, 30), ("page", (40, 30), str(pages / "a.png")),
+        ("page", (50, 20), str(pages / "b.png"))]
+    assert "[warm-up " in res.stderr
+
+
+def test_single_file_runs_without_warm_up(page, stub_pipeline,
+                                          detector_calls):
+    img, out = page
+    res = CliRunner().invoke(cli.main, ["-i", img, "-o", out,
+                                        "--synthetic-models",
+                                        "--device", "cpu"])
+    assert res.exit_code == 0, res.output
+    assert detector_calls == [("page", (40, 30), img)]
+    assert "[warm-up" not in res.output

@@ -162,8 +162,7 @@ def test_once_refused_flags_serve_like_jax(bundles, flag, value):
 
 def test_every_runtime_flag_is_read_raised_or_listed(bundles):
     """No RuntimeConfig field is silently ignored: each is read by the
-    port or is one of the two the README lists as without effect; and the
-    defaults construct."""
+    port, none is without effect; and the defaults construct."""
     _, tb = bundles
     detector.TextlineDetector(tb, DEFAULT_CONFIG)
     read = {"batch_buckets", "tile_chunk", "grid_bucket", "grid_bucket_x",
@@ -172,8 +171,9 @@ def test_every_runtime_flag_is_read_raised_or_listed(bundles):
             "textline_projection", "raw_upload", "resident_upload",
             "pages_per_dispatch", "device_phase_workers", "page_box_batch",
             "spec_deskew", "deskew_spec_slots", "device_page_box",
-            "fused_page_box", "deskew_buf_max"}
-    without_effect = {"warm_fallback_programs", "mesh_auto_group"}
+            "fused_page_box", "deskew_buf_max", "warm_fallback_programs",
+            "mesh_auto_group"}
+    without_effect = set()
     fields = {f.name for f in dataclasses.fields(RuntimeConfig)}
     assert fields == read | without_effect
     assert not hasattr(detector, "_UNPORTED_FLAGS")
