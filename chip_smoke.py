@@ -102,6 +102,24 @@ Phases (any failure raises and the script exits non-zero):
      pixels or in its region count; if a page degrades, a fallback is
      counted or results come out of order. A slower batch is written
      down, not failed;
+ 7a. the port's bench (bench_phase), at its full recipe and under
+     DEFAULT_CONFIG itself (the reference's deskew cap of 2816):
+     sbb_textline_detection_tpu_torch.bench trains the page model for
+     BENCH_TRAIN_STEPS and the dual-head model for 6x as many steps on
+     the card from nothing, serves BENCH_PAGES hard_mix pages at
+     3508x2480 (warm_up, a warm pass, the timed process_batch) and scores
+     them; its JSON line is printed, with the quality gates beside the
+     JAX package's TPU figures (BENCH_r05.json), the host_sweep count and
+     the largest region against the cap. It fails on fewer results than
+     pages or results out of order, a degraded page, a fallback other
+     than host_sweep, a PAGE-XML that does not parse or a quality value
+     that is not finite (the gates are not enforced here). One bench page
+     more runs under torch.profiler (the card's idle share on a trained
+     page; the Radon kernel held against its plain version on that page's
+     canvases, their share of set pixels). With --details, the two
+     checkpoints are packed beside the details file
+     (scripts/trained_parity.py's pack) for the comparison with the JAX
+     package on the CPU;
   8. training, on the dual-head model at full width (DUALHEAD_SPEC: widths
      (32, 64, 128, 256), 448x448, 2 input channels, heads (3, 2)):
      (a) one float32 AdamW step (TF32 off) from the same random_init
@@ -110,10 +128,9 @@ Phases (any failure raises and the script exits non-zero):
      Trainer (bf16 convs, batch 8) for TRAIN_STEPS steps on pre-drawn
      batches, timed with CUDA events after a warm-up, beside the host's
      data ms per batch, a few steps with the data drawn in the loop, and
-     the peak device memory: the loss must fall; (c) a page model trained
-     for PAGE_STEPS steps and the dual-head model are saved with
-     checkpoint.save under build/smoke_models/, loaded by
-     ModelBundle.from_dir, and serve one A4 page, which must not degrade;
+     the peak device memory: the loss must fall; (c) the bench
+     checkpoints of phase 7a, loaded by ModelBundle.from_dir, serve one
+     A4 page, which must not degrade or fall back;
   9. the OCR-D processor (ocrd_phase), through the stub OCR-D framework
      of tests/ocrd_stub.py, on two A4 pages (one as scanned, one the crop
      at OCRD_CROP of a larger scan, whose page transform is a
@@ -139,9 +156,11 @@ Phases (any failure raises and the script exits non-zero):
      --backend nccl` runs too.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. The kernel line's launches add up phases
-4, 4a (its children's too), 5, 6 (the flags), 7 (a)-(d), 9 and 10. With
---only batch, phases 4 (classic bundle), 4a, 5, 8, 9 and 10 are left out
-(a shorter run while working on the batch; the default runs everything). With --details PATH, the run's details
+4, 4a (its children's too), 5, 6 (the flags), 7 (a)-(d), 7a (warm_up and
+both passes), 8 (c), 9 and 10. With --only batch, phases 4 (classic
+bundle), 4a, 5, 7a, 8, 9 and 10 are left out (a shorter run while working
+on the batch); with --only bench, phase 3 and 7a alone run (the default
+runs everything). With --details PATH, the run's details
 (ptxas report, per-page stage timings, kernel times) are written there as
 JSON. After the timed pages, the second page runs once more under
 torch.profiler for its device time by op and the Radon kernel's device
@@ -166,7 +185,6 @@ TRAIN_STEPS = 150     # timed dual-head steps (b), warm-up included
 TRAIN_WARMUP = 5
 STREAM_STEPS = 10     # steps with the data drawn in the loop
 PROFILE_STEPS = 5     # more such steps under torch.profiler
-PAGE_STEPS = 20       # page-model steps for the served checkpoints (c)
 # (a) card vs CPU tolerances of one float32 AdamW step, set from the
 # first run on an H100 (loss rel 6.5e-8, gradients 2.1e-4 of the largest,
 # params 4.4e-7) with room to spare. Adam's first update is
@@ -246,6 +264,24 @@ MESH_TRAIN_RTOL = 1e-6
 # the seconds a child process may take
 WARM_HW = (3508, 2480)
 WARM_CHILD_TIMEOUT = 420
+# bench_phase: the port's bench (sbb_textline_detection_tpu_torch/bench.py)
+# at its full recipe: page-model steps (the dual-head model trains 6x as
+# many), timed pages (at WARM_HW), the page profiled afterwards (hard_mix
+# page 1: 18 degree skew with figures); the reference's quality gates
+# (VERDICT r5, PERF.md section 1), printed and not enforced here; the
+# JAX package's figures on them from BENCH_r05.json, a TPU run; and the
+# most bytes the packed checkpoints may take beside --details (what a
+# card run brings back is limited)
+BENCH_TRAIN_STEPS = 300
+BENCH_PAGES = 8
+BENCH_PROFILED_PAGE = 1
+BENCH_GATES = (("region_recall", ">=", 1.0),
+               ("region_precision", ">=", 0.97),
+               ("line_count_mae", "<=", 0.1))
+BENCH_R05_TPU = {"region_recall": 1.0, "region_precision": 0.983,
+                 "line_count_mae": 0.025, "line_recall": 0.997,
+                 "line_recall_vertical": 0.975}
+BENCH_PACK_MAX = 63 * 2 ** 20
 
 
 def _serve_config(**flags):
@@ -788,7 +824,7 @@ def _print_profile(what, wall, device, rows, kernels):
               flush=True)
 
 
-def profile_phase(det, page, details):
+def profile_phase(det, page, details, key="profile"):
     """One more pass of `page` under torch.profiler; the Radon kernel's
     device ms on it. A spy on ops/radon.radon_pairs keeps the inputs of
     the page's sweeps, on which the kernel, its plain version, the library
@@ -811,10 +847,10 @@ def profile_phase(det, page, details):
         radon.radon_pairs = real
     launched = radon.launches - before
     radon_ms = sum(ms for k, ms in kernels.items() if "radon" in k)
-    details["profile"] = {"page": page[1], "wall_s": wall,
-                          "device_s": device, "top_ops": rows[:25],
-                          "radon_kernel_ms": radon_ms,
-                          "radon_launches": launched}
+    details[key] = {"page": page[1], "wall_s": wall,
+                    "device_s": device, "top_ops": rows[:25],
+                    "radon_kernel_ms": radon_ms,
+                    "radon_launches": launched}
     _print_profile(page[1], wall, device, rows, kernels)
     print(f"  the Radon kernel: {radon_ms:.3f} ms of device time over "
           f"{launched} launches on this page", flush=True)
@@ -823,7 +859,7 @@ def profile_phase(det, page, details):
     if len(sweeps) != launched:
         raise AssertionError(f"the spy saw {len(sweeps)} sweeps, the "
                              f"kernel counted {launched} launches")
-    details["profile"]["sweeps"] = _page_sweeps(sweeps, radon_ms)
+    details[key]["sweeps"] = _page_sweeps(sweeps, radon_ms)
 
 
 def _page_sweeps(sweeps, device_ms):
@@ -843,7 +879,7 @@ def _page_sweeps(sweeps, device_ms):
 
     row = {"launches": len(sweeps), "ms": device_ms, "launch_ms": 0.0,
            "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-           "max_abs_err": 0.0, "set_pixels": 0}
+           "max_abs_err": 0.0, "set_pixels": 0, "canvas_pixels": 0}
     sides = collections.Counter()
     shapes = collections.Counter()
     for canv, angles in sweeps:
@@ -864,10 +900,14 @@ def _page_sweeps(sweeps, device_ms):
         shapes[f"{canv.shape[0]} x {angles.shape[0]} at "
                f"{canv.shape[1]}"] += 1
         row["set_pixels"] += int((canv != 0).sum())
+        row["canvas_pixels"] += int(canv.numel())
+    row["density"] = row["set_pixels"] / max(row["canvas_pixels"], 1)
     row["bound_by"] = sides.most_common(1)[0][0] if sides else None
     row["shapes"] = dict(shapes)
     print(f"  its {row['launches']} sweeps ({dict(shapes)}, "
-          f"{row['set_pixels']} set pixels) on their own inputs, summed: "
+          f"{row['set_pixels']} set pixels, a share of "
+          f"{row['density']:.4f} of the canvases) on their own inputs, "
+          f"summed: "
           f"kernel {row['ms']:.4f} ms on the device (back-to-back "
           f"launches {row['launch_ms']:.4f} ms by CUDA events), plain "
           f"{row['plain_ms']:.3f} ms, "
@@ -2020,33 +2060,192 @@ def train_phase(dev, details):
     _print_profile(f"{PROFILE_STEPS} streamed training steps", *prof)
     if not all(np.isfinite(losses)) or not last < first:
         raise AssertionError("the training loss did not fall")
-    return tr
 
 
-def serve_trained_phase(dev, details, dual, random_regions):
-    """(c) Save the trained dual-head model and a briefly trained page
-    model, load both through ModelBundle.from_dir, serve one A4 page."""
+def _cap_spied(det):
+    """Record, for each resident_dispatch of `det`'s deskew engine, the
+    largest region box (h, w) against the buffer cap (h, w) of its canvas
+    (a region above the cap makes the chain raise, and the page takes the
+    host sweep)."""
+    eng = det.deskew
+    real = eng.resident_dispatch
+    det.cap_calls = []
+
+    def resident_dispatch(mask_dev, boxes_xywh):
+        if len(boxes_xywh):
+            det.cap_calls.append((
+                max(int(b[3]) for b in boxes_xywh),
+                max(int(b[2]) for b in boxes_xywh),
+                eng.resident_buffer_shape(tuple(mask_dev.shape))))
+        return real(mask_dev, boxes_xywh)
+
+    eng.resident_dispatch = resident_dispatch
+    return det
+
+
+def _pack_checkpoints(ckpt, details_path):
+    """Pack the bench checkpoints beside `details_path` with
+    scripts/trained_parity.py's `pack`, for the comparison with the JAX
+    package on the CPU; dropped when larger than BENCH_PACK_MAX."""
+    spec = importlib.util.spec_from_file_location(
+        "trained_parity", os.path.join(ROOT, "scripts", "trained_parity.py"))
+    parity = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(parity)
+    path = os.path.join(os.path.dirname(os.path.abspath(details_path)),
+                        "bench_ckpts.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    size = parity.pack(ckpt, path)
+    if size > BENCH_PACK_MAX:
+        os.remove(path)
+        print(f"the packed bench checkpoints take {size} bytes, above "
+              f"{BENCH_PACK_MAX}: not kept", flush=True)
+        return None
+    print(f"bench checkpoints packed into {path} ({size} bytes)", flush=True)
+    return {"path": path, "bytes": size}
+
+
+def bench_phase(dev, details, details_path=None):
+    """The port's bench at its full recipe: ensure_bench_checkpoints trains
+    the page model for BENCH_TRAIN_STEPS steps and the dual-head model for
+    6x as many on the card (from nothing: the cache directory is emptied
+    first), then warm_up, the warm pass and the timed process_batch of
+    BENCH_PAGES hard_mix pages under DEFAULT_CONFIG (the reference's
+    deskew cap of 2816), and the quality score. Its JSON line is printed.
+    It fails on fewer results than pages or results out of order, a
+    degraded page, a fallback other than host_sweep (a region above the
+    cap), a PAGE-XML that does not parse, or a quality value that is not
+    finite; the gates are printed beside BENCH_r05.json's TPU figures.
+    Then one page more under torch.profiler (profile_phase): the card's
+    idle share on a trained page, and the Radon kernel on that page's
+    canvases. Returns (Radon launches of the served passes, the checkpoint
+    directory)."""
+    import math
+    import shutil
+    import xml.etree.ElementTree as ET
+
+    from sbb_textline_detection_tpu_torch import bench
+    from sbb_textline_detection_tpu_torch.core.config import DEFAULT_CONFIG
+    from sbb_textline_detection_tpu_torch.models.runner import ModelBundle
+    from sbb_textline_detection_tpu_torch.ops import radon
+    from sbb_textline_detection_tpu_torch.pipeline.detector import (
+        TextlineDetector)
+    from sbb_textline_detection_tpu_torch.utils import synthetic
+
+    # the dual-head stream builds its page-crop pool from its own rng at
+    # its first page crop; a pool another phase built would change the
+    # stream that follows
+    if synthetic._PAGE_POOL is not None:
+        raise AssertionError("the page-crop pool exists before the bench "
+                             "trains: its data would differ from a fresh "
+                             "process's")
+    ckpt = os.path.join(ROOT, "build", "bench_ckpts")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.time()
+    bench.ensure_bench_checkpoints(ckpt, BENCH_TRAIN_STEPS, device=dev)
+    train_s = time.time() - t0
+    print(f"bench checkpoints trained in {train_s:.1f} s "
+          f"({BENCH_TRAIN_STEPS} page-model steps, "
+          f"{6 * BENCH_TRAIN_STEPS} dual-head steps, batch 8)", flush=True)
+    models = ModelBundle.from_dir(ckpt, DEFAULT_CONFIG.runtime, dev,
+                                  DEFAULT_CONFIG.model_names)
+    det = _cap_spied(TextlineDetector(models, DEFAULT_CONFIG))
+    mix = bench.bench_mix(BENCH_PAGES)
+    pages, layouts = bench.bench_pages(BENCH_PAGES, *WARM_HW)
+    radon.launches = 0
+    served = bench.serve(det, pages, *WARM_HW)
+    launches = radon.launches
+    scores = bench.page_scores(served, layouts)
+    out = bench.result(served, scores, layouts, mix)
+    print(json.dumps(out), flush=True)
+
+    results = served.results
+    names = [ET_page_name(r) for r in results]
+    want = [f"bench_{i}.png" for i in range(BENCH_PAGES)]
+    cap = DEFAULT_CONFIG.runtime.deskew_buf_max
+    largest = max(((h, w) for h, w, _ in det.cap_calls),
+                  key=max, default=(0, 0))
+    over = sum(h > ch or w > cw for h, w, (ch, cw) in det.cap_calls)
+    rows = [{"skew": m[0], "regions": len(r.contours),
+             "lines": sum(len(t) for t in r.textlines),
+             "seconds": r.timings.get("total"), "timings": r.timings,
+             "device_timings": r.device_timings, "flops": r.flops,
+             "region_recall": sc.region_recall,
+             "region_precision": sc.region_precision,
+             "line_count_mae": sc.line_count_mae,
+             "line_recall": sc.line_recall}
+            for r, sc, m in zip(results, scores, mix)]
+    gates = [{"key": k, "op": op, "limit": lim, "value": out["quality"][k],
+              "met": (out["quality"][k] >= lim if op == ">="
+                      else out["quality"][k] <= lim),
+              "tpu_r05": BENCH_R05_TPU[k]} for k, op, lim in BENCH_GATES]
+    details["bench"] = {
+        "result": out, "train_seconds": train_s, "pages": rows,
+        "seconds": served.seconds, "warm_up": served.warm_timings,
+        "warm_page_walls": served.warm_page_walls,
+        "warm_up_seconds": served.warm_up_seconds,
+        "radon_launches": launches, "fallbacks": dict(det.fallbacks),
+        "degraded": det.degraded, "gates": gates,
+        "resident_dispatches": len(det.cap_calls),
+        "over_cap_dispatches": over,
+        "largest_region_hw": list(largest), "deskew_buf_max": cap}
+    print(f"bench ({BENCH_PAGES} hard_mix pages at {WARM_HW[0]}x"
+          f"{WARM_HW[1]}, DEFAULT_CONFIG): {out['value']} pages/s, p50 "
+          f"{out['p50_latency_ms']} ms, warm-up {out['warm_up_seconds']} s, "
+          f"{out['regions_total']} regions and {out['lines_total']} lines, "
+          f"{launches} radon launches", flush=True)
+    print(f"bench deskew: {len(det.cap_calls)} resident dispatches, {over} "
+          f"with a region above the cap; largest region {largest[0]}x"
+          f"{largest[1]} (buffer side "
+          f"{-(-max(largest) // 256) * 256}) against deskew_buf_max {cap}; "
+          f"host_sweep fallbacks {det.fallbacks.get('host_sweep', 0)}",
+          flush=True)
+    for g in gates:
+        print(f"bench gate {g['key']} {g['op']} {g['limit']}: "
+              f"{g['value']} ({'met' if g['met'] else 'NOT met'}; the JAX "
+              f"package's TPU run, BENCH_r05.json: {g['tpu_r05']})",
+              flush=True)
+    print(f"bench line recall {out['quality']['line_recall']} (TPU r05 "
+          f"{BENCH_R05_TPU['line_recall']}), vertical "
+          f"{out['quality']['line_recall_vertical']} (TPU r05 "
+          f"{BENCH_R05_TPU['line_recall_vertical']})", flush=True)
+
+    if names != want:
+        raise AssertionError(f"bench results {names}, expected {want}")
+    if det.degraded or any(r.degraded for r in results):
+        raise AssertionError("a bench page degraded")
+    if set(det.fallbacks) - {"host_sweep"}:
+        raise AssertionError(f"the bench fell back: {dict(det.fallbacks)}")
+    for r in results:
+        ET.fromstring(ET.tostring(r.xml_tree.getroot()))
+    for k, v in out["quality"].items():
+        if not isinstance(v, list) and not math.isfinite(v):
+            raise AssertionError(f"bench quality {k} is {v}")
+    if launches < 1:
+        raise AssertionError("the bench launched no Radon kernel")
+
+    del det.deskew.resident_dispatch
+    profile_phase(det, (pages[BENCH_PROFILED_PAGE],
+                        f"bench_{BENCH_PROFILED_PAGE}.png"), details,
+                  key="bench_profile")
+    if details_path:
+        details["bench"]["packed"] = _pack_checkpoints(ckpt, details_path)
+    return launches, ckpt
+
+
+def serve_trained_phase(dev, details, ckpt, random_regions):
+    """(c) The bench checkpoints (bench_phase), loaded by
+    ModelBundle.from_dir, serve one A4 page under the serving config."""
     import numpy as np
 
-    from sbb_textline_detection_tpu_torch.models import registry
     from sbb_textline_detection_tpu_torch.models.runner import ModelBundle
     from sbb_textline_detection_tpu_torch.ops import radon
     from sbb_textline_detection_tpu_torch.pipeline.detector import (
         DEFAULT_CONFIG, TextlineDetector)
-    from sbb_textline_detection_tpu_torch.training import data, train
     from sbb_textline_detection_tpu_torch.training import eval as layout_eval
     from sbb_textline_detection_tpu_torch.utils import synthetic
 
-    spec = registry.DEFAULT_SPECS["page"]
-    page = train.Trainer(spec, 3e-4, SEED, device=dev)
-    page_losses = page.train(data.synthetic_batches(
-        "page", 8, spec.input_height, spec.input_width, SEED), PAGE_STEPS)
-    out = os.path.join(ROOT, "build", "smoke_models")
-    os.makedirs(out, exist_ok=True)
-    names = DEFAULT_CONFIG.model_names
-    page.save(os.path.join(out, names.page + ".npz"))
-    dual.save(os.path.join(out, names.dualhead + ".npz"))
-    models = ModelBundle.from_dir(out, DEFAULT_CONFIG.runtime, dev, names)
+    models = ModelBundle.from_dir(ckpt, DEFAULT_CONFIG.runtime, dev,
+                                  DEFAULT_CONFIG.model_names)
     det = TextlineDetector(models, _serve_config())
     img, layout = synthetic.make_page(np.random.default_rng(SEED), 3508,
                                       2480, skew_deg=SKEWS[0])
@@ -2057,15 +2256,15 @@ def serve_trained_phase(dev, details, dual, random_regions):
     launches = radon.launches
     score = layout_eval.evaluate_layout(res, layout)
     details["serve_trained"] = {
-        "page_losses": page_losses, "seconds": sec,
+        "seconds": sec,
         "regions": len(res.contours), "random_weight_regions":
         random_regions, "radon_launches": launches,
         "degraded": res.degraded, "region_recall": score.region_recall,
         "region_precision": score.region_precision,
         "timings": res.timings}
-    print(f"trained checkpoints ({PAGE_STEPS} page steps, loss "
-          f"{page_losses[0]:.4f} -> {page_losses[-1]:.4f}; {TRAIN_STEPS} "
-          f"dual-head steps) serve a4_trained.png: {sec:.2f} s, "
+    print(f"bench checkpoints ({BENCH_TRAIN_STEPS} page-model steps, "
+          f"{6 * BENCH_TRAIN_STEPS} dual-head steps) serve a4_trained.png: "
+          f"{sec:.2f} s, "
           f"{len(res.contours)} regions (random weights: "
           f"{', '.join(map(str, random_regions))}), region recall "
           f"{score.region_recall:.3f}, precision "
@@ -2075,6 +2274,7 @@ def serve_trained_phase(dev, details, dual, random_regions):
         raise AssertionError("the page served by the trained checkpoints "
                              "degraded")
     _no_fallbacks(det, "the page served by the trained checkpoints")
+    return launches
 
 
 def _within(points, parent, tol=1.0):
@@ -2646,9 +2846,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--details", help="write the run's details (JSON) "
                         "to this path")
-    parser.add_argument("--only", choices=["batch"], help="a shorter run: "
-                        "leave out the fallback ladder, the classic bundle "
-                        "and training")
+    parser.add_argument("--only", choices=["batch", "bench"],
+                        help="a shorter run: `batch` leaves out the fallback "
+                        "ladder, the classic bundle, the bench and training; "
+                        "`bench` runs the kernel phase and the bench only")
     parser.add_argument("--warm-child", choices=["warm", "cold"],
                         help="run as one of warm_phase's child processes "
                         "and print its result as the last line")
@@ -2706,26 +2907,10 @@ def main() -> int:
 def _phases(args, dev, details, torch) -> int:
     """Every phase after the builds, then the two result lines."""
     kernel = kernel_phase(dev, details)
-    deskew_phase(dev, details)
-    unet_phase(dev, details)
-    launches, det, pages, results = pipeline_phase(dev, details)
-    profile_phase(det, pages[1], details)
-    if not args.only:
-        launches += warm_phase(details, det.models, results)
-        launches += fallback_phase(details, det.models, pages[1])
-    radon_busy_phase(det, pages[1], details)
-    launches += flags_phase(details, det.models, pages)
-    launches += batch_phase(details, det.models)
-    del det
-    if not args.only:
-        launches += ocrd_phase(dev, details)
-        launches += mesh_phase(dev, details, pages)
-        launches += classic_phase(dev, details)
-        train_parity_phase(dev, details)
-        dual = train_phase(dev, details)
-        serve_trained_phase(dev, details, dual,
-                            [p["regions"] for p in details["pages"]])
-
+    if args.only == "bench":
+        launches, _ = bench_phase(dev, details, args.details)
+    else:
+        launches = _serving_phases(args, dev, details)
     print(json.dumps({"kernels": [{
         "name": "radon_pairs", "route": "cuda",
         "source": "sbb_textline_detection_tpu_torch/csrc/radon.cu",
@@ -2738,6 +2923,34 @@ def _phases(args, dev, details, torch) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _serving_phases(args, dev, details) -> int:
+    """The phases after kernel_phase; their Radon launches."""
+    deskew_phase(dev, details)
+    unet_phase(dev, details)
+    launches, det, pages, results = pipeline_phase(dev, details)
+    profile_phase(det, pages[1], details)
+    if not args.only:
+        launches += warm_phase(details, det.models, results)
+        launches += fallback_phase(details, det.models, pages[1])
+    radon_busy_phase(det, pages[1], details)
+    launches += flags_phase(details, det.models, pages)
+    launches += batch_phase(details, det.models)
+    random_regions = [p["regions"] for p in details["pages"]]
+    del det
+    if not args.only:
+        # before any other training: the bench's dual-head stream builds
+        # the page-crop pool from its own rng, as in a fresh process
+        bench_launches, ckpt = bench_phase(dev, details, args.details)
+        launches += bench_launches
+        launches += ocrd_phase(dev, details)
+        launches += mesh_phase(dev, details, pages)
+        launches += classic_phase(dev, details)
+        train_parity_phase(dev, details)
+        train_phase(dev, details)
+        launches += serve_trained_phase(dev, details, ckpt, random_regions)
+    return launches
 
 
 if __name__ == "__main__":

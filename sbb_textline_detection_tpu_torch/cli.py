@@ -2,10 +2,11 @@
 
 `python -m sbb_textline_detection_tpu_torch.cli -i IMAGE -o OUT_DIR
 -m MODEL_DIR` mirrors the reference CLI (upstream main.py:2162-2171):
-`-i` may be a directory (its pages run as one pipelined batch,
-TextlineDetector.process_batch, with the models loaded once; with more
-than one page, TextlineDetector.warm_up first runs every device path at
-the first page's shape and `[warm-up X.Xs]` goes to stderr);
+`-i` may be a directory: with more than one page, its pages run as one
+pipelined batch (TextlineDetector.process_batch) with the models loaded
+once, after TextlineDetector.warm_up has run every device path at the
+first page's shape (`[warm-up X.Xs]` goes to stderr); a single page is
+served by TextlineDetector.process_image, as the reference CLI does;
 `--synthetic-models` uses randomly initialized models (the
 page and dual-head TpuUnets); `-m` reads a directory of checkpoints
 through ModelBundle.from_dir: the page and dual-head `.npz` files of the
@@ -95,7 +96,6 @@ def main(image, out, model, synthetic_models, profile, timings, device):
     else:
         paths = [image]
     with profiling.trace(profile):
-        pages = ((load_image(p), p) for p in paths)
         if len(paths) > 1:
             # the first pages of a batch should not pay the cold start:
             # warm every device path at the first page's shape
@@ -105,8 +105,13 @@ def main(image, out, model, synthetic_models, profile, timings, device):
             click.echo(f"[warm-up {time.time() - t0:.1f}s]", err=True)
             pages = itertools.chain(
                 [(first, paths[0])], ((load_image(p), p) for p in paths[1:]))
-        t0 = time.time()
-        results = detector.process_batch(pages)
+            t0 = time.time()
+            results = detector.process_batch(pages)
+        else:
+            # one page: no worker pool and no page-box prefetch thread
+            t0 = time.time()
+            results = (detector.process_image(load_image(p), p)
+                       for p in paths)
         for path, res in zip(paths, results):
             f_name = os.path.splitext(os.path.basename(path))[0]
             xml_path = res.write(out, f_name)
@@ -118,7 +123,6 @@ def main(image, out, model, synthetic_models, profile, timings, device):
                 click.echo("  device: " + " ".join(
                     f"{k}={v:.3f}s" for k, v in res.device_timings.items())
                     + f" flops={res.flops:.4g}")
-
 
 if __name__ == "__main__":
     main()

@@ -1,7 +1,11 @@
 """The port's serving CLI runs where it is told: without a CUDA card it
 stops unless `--device cpu` is given, and never moves to the CPU on its
 own. A directory of several pages warms the detector up once, at the
-first page's shape, before the batch; a single file does not."""
+first page's shape, before the batch; a single file is served by
+process_image, without a warm-up and without the batch's threads."""
+
+import os
+import xml.etree.ElementTree as ET
 
 import numpy as np
 import pytest
@@ -29,8 +33,9 @@ def no_cuda(monkeypatch):
 
 @pytest.fixture
 def detector_calls():
-    """What the stub detector was asked: warm_up's (height, width) and the
-    pages process_batch received, in order."""
+    """What the stub detector was asked: warm_up's (height, width), the
+    pages process_batch received and the pages process_image received, in
+    order."""
     return []
 
 
@@ -55,6 +60,12 @@ def stub_pipeline(monkeypatch, detector_calls):
             for img, name in pages:
                 detector_calls.append(("page", img.shape[:2], name))
             return iter(())
+
+        def process_image(self, image, image_filename=""):
+            detector_calls.append(("image", image.shape[:2],
+                                   image_filename))
+            return detector.PageResult(ET.ElementTree(ET.Element("PcGts")),
+                                       [], [], [], [0, 40, 0, 30], {})
 
     monkeypatch.setattr(runner.ModelBundle, "random_init",
                         staticmethod(random_init))
@@ -127,5 +138,6 @@ def test_single_file_runs_without_warm_up(page, stub_pipeline,
                                         "--synthetic-models",
                                         "--device", "cpu"])
     assert res.exit_code == 0, res.output
-    assert detector_calls == [("page", (40, 30), img)]
+    assert detector_calls == [("image", (40, 30), img)]
     assert "[warm-up" not in res.output
+    assert os.listdir(out) == ["p.xml"]

@@ -23,6 +23,7 @@ from sbb_textline_detection_tpu.ops import polygon as jpolygon
 from sbb_textline_detection_tpu.ops import rotate as jrotate
 from sbb_textline_detection_tpu.ops import tiling as jtiling
 from sbb_textline_detection_tpu.pagexml import writer as jwriter
+from sbb_textline_detection_tpu_torch import bench as tbench
 from sbb_textline_detection_tpu_torch.core import config as tconfig
 from sbb_textline_detection_tpu_torch.models import runner
 from sbb_textline_detection_tpu_torch.ocrd import merge as tmerge
@@ -50,6 +51,8 @@ BLOCKED = ("jax", "jaxlib", "flax", "optax", "sbb_textline_detection_tpu",
 
 
 def test_port_imports_with_jax_blocked():
+    # the serving bench too: it runs on the card's machine, which has no JAX
+    assert "sbb_textline_detection_tpu_torch.bench" in MODULES
     code = ("import sys, importlib, importlib.util\n"
             f"for m in {BLOCKED!r}:\n"
             "    sys.modules[m] = None\n"
@@ -243,7 +246,8 @@ def test_copies_match_jax_package(what, tmp_path, monkeypatch):
 @pytest.mark.parametrize("fn", [
     runner.SegmentationModel.__init__, runner.ModelBundle.random_init,
     runner.ModelBundle.from_jax_variables, runner.ModelBundle.from_dir,
-    tprocessor.OcrdSbbTextlineDetectorRecognize.__init__],
+    tprocessor.OcrdSbbTextlineDetectorRecognize.__init__,
+    tbench.ensure_bench_checkpoints],
     ids=lambda f: f.__qualname__)
 def test_library_api_defaults_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
