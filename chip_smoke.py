@@ -118,8 +118,8 @@ Phases (any failure raises and the script exits non-zero):
      page; the Radon kernel held against its plain version on that page's
      canvases, their share of set pixels). With --details, the two
      checkpoints are packed beside the details file
-     (scripts/trained_parity.py's pack) for the comparison with the JAX
-     package on the CPU;
+     (models/checkpoint.pack_dir) for scripts/trained_parity.py's
+     comparison with the JAX package on the CPU;
   8. training, on the dual-head model at full width (DUALHEAD_SPEC: widths
      (32, 64, 128, 256), 448x448, 2 input channels, heads (3, 2)):
      (a) one float32 AdamW step (TF32 off) from the same random_init
@@ -2084,17 +2084,15 @@ def _cap_spied(det):
 
 
 def _pack_checkpoints(ckpt, details_path):
-    """Pack the bench checkpoints beside `details_path` with
-    scripts/trained_parity.py's `pack`, for the comparison with the JAX
-    package on the CPU; dropped when larger than BENCH_PACK_MAX."""
-    spec = importlib.util.spec_from_file_location(
-        "trained_parity", os.path.join(ROOT, "scripts", "trained_parity.py"))
-    parity = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(parity)
+    """Pack the bench checkpoints beside `details_path`
+    (checkpoint.pack_dir), for scripts/trained_parity.py's comparison with
+    the JAX package on the CPU; dropped when larger than BENCH_PACK_MAX."""
+    from sbb_textline_detection_tpu_torch.models import checkpoint
+
     path = os.path.join(os.path.dirname(os.path.abspath(details_path)),
                         "bench_ckpts.npz")
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    size = parity.pack(ckpt, path)
+    size = checkpoint.pack_dir(ckpt, path)
     if size > BENCH_PACK_MAX:
         os.remove(path)
         print(f"the packed bench checkpoints take {size} bytes, above "
@@ -2162,8 +2160,10 @@ def bench_phase(dev, details, details_path=None):
     names = [ET_page_name(r) for r in results]
     want = [f"bench_{i}.png" for i in range(BENCH_PAGES)]
     cap = DEFAULT_CONFIG.runtime.deskew_buf_max
-    largest = max(((h, w) for h, w, _ in det.cap_calls),
-                  key=max, default=(0, 0))
+    # the dispatch that held the largest region, with the buffer it had
+    largest_h, largest_w, largest_buf = max(
+        det.cap_calls, key=lambda c: max(c[0], c[1]),
+        default=(0, 0, (0, 0)))
     over = sum(h > ch or w > cw for h, w, (ch, cw) in det.cap_calls)
     rows = [{"skew": m[0], "regions": len(r.contours),
              "lines": sum(len(t) for t in r.textlines),
@@ -2187,16 +2187,18 @@ def bench_phase(dev, details, details_path=None):
         "degraded": det.degraded, "gates": gates,
         "resident_dispatches": len(det.cap_calls),
         "over_cap_dispatches": over,
-        "largest_region_hw": list(largest), "deskew_buf_max": cap}
+        "largest_region_hw": [largest_h, largest_w],
+        "largest_region_buffer_hw": list(largest_buf),
+        "deskew_buf_max": cap}
     print(f"bench ({BENCH_PAGES} hard_mix pages at {WARM_HW[0]}x"
           f"{WARM_HW[1]}, DEFAULT_CONFIG): {out['value']} pages/s, p50 "
           f"{out['p50_latency_ms']} ms, warm-up {out['warm_up_seconds']} s, "
           f"{out['regions_total']} regions and {out['lines_total']} lines, "
           f"{launches} radon launches", flush=True)
     print(f"bench deskew: {len(det.cap_calls)} resident dispatches, {over} "
-          f"with a region above the cap; largest region {largest[0]}x"
-          f"{largest[1]} (buffer side "
-          f"{-(-max(largest) // 256) * 256}) against deskew_buf_max {cap}; "
+          f"with a region above the cap; largest region {largest_h}x"
+          f"{largest_w} in a buffer of {largest_buf[0]}x{largest_buf[1]} "
+          f"(deskew_buf_max {cap}); "
           f"host_sweep fallbacks {det.fallbacks.get('host_sweep', 0)}",
           flush=True)
     for g in gates:

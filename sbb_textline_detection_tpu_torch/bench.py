@@ -48,7 +48,6 @@ import argparse
 import dataclasses
 import json
 import os
-import queue
 import subprocess
 import sys
 import threading
@@ -105,46 +104,6 @@ def ensure_native() -> None:
                            "bench would time the numpy fallbacks")
 
 
-class _Raised:
-    def __init__(self, exc: Exception):
-        self.exc = exc
-
-
-def _drawn_ahead(batches, depth: int = 2):
-    """Yield the items of the iterator `batches`, drawn up to `depth` ahead
-    on a thread, so that the host draws the next batch while the card
-    trains on this one. One thread draws them in order: the stream is the
-    one `batches` gives."""
-    q: queue.Queue = queue.Queue(depth)
-    stop = threading.Event()
-
-    def fill():
-        try:
-            for item in batches:
-                while not stop.is_set():
-                    try:
-                        q.put(item, timeout=0.1)
-                        break
-                    except queue.Full:
-                        pass
-                if stop.is_set():
-                    return
-        except Exception as exc:  # handed to the consumer
-            q.put(_Raised(exc))
-
-    thread = threading.Thread(target=fill, name="bench-data", daemon=True)
-    thread.start()
-    try:
-        while True:
-            item = q.get()
-            if isinstance(item, _Raised):
-                raise item.exc
-            yield item
-    finally:
-        stop.set()
-        thread.join()
-
-
 def ensure_bench_checkpoints(ckpt_dir: str, steps: int, seed: int = 0,
                              device="cuda") -> str:
     """Train-or-load the bench checkpoints (`bench.py`'s recipe); returns
@@ -182,7 +141,7 @@ def ensure_bench_checkpoints(ckpt_dir: str, steps: int, seed: int = 0,
                 yield imgs, labels
 
         t0 = time.time()
-        losses = trainer.train(_drawn_ahead(data_iter()), role_steps)
+        losses = trainer.train(data_iter(), role_steps)
         _log(f"[bench] {role}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
              f"({time.time() - t0:.1f}s)")
         trainer.save(path)

@@ -9,6 +9,8 @@ ResNet50Unet, `batch_stats`) into a state_dict of models/unet and
 `flax_from_params` is its inverse; `random_init` draws a fresh state_dict
 with Flax's own initialisers. `checkpoint_path` resolves a model name in a
 directory and converts an upstream Keras `.h5` on load (models/convert.py).
+`pack_dir` / `unpack_dir` carry a directory of checkpoints as one smaller
+file and back, bit for bit.
 
 The two trees name the same modules: Flax's auto-named `Conv_0` /
 `GroupNorm_0` are the port's `conv` / `norm`, and a ResNet BatchNorm's
@@ -30,6 +32,7 @@ from sbb_textline_detection_tpu_torch.models.registry import ModelSpec
 
 _META_KEY = "__meta__"
 _SEP = "::"
+_PLANES = "|f32planes|"
 _MODULE_TO_TORCH = {"Conv_0": "conv", "GroupNorm_0": "norm",
                     "BatchNorm_0": None}
 _LEAF_TO_TORCH = {"kernel": "weight", "scale": "weight", "bias": "bias",
@@ -222,3 +225,47 @@ def _dir_cache_key(model_dir: str) -> str:
 
     return hashlib.sha256(
         os.path.abspath(model_dir).encode("utf-8")).hexdigest()[:16]
+
+
+def pack_dir(ckpt_dir: str, out_path: str) -> int:
+    """Write every `.npz` checkpoint of `ckpt_dir` into one compressed
+    `.npz`, each float32 array as its four byte planes (the sign and
+    exponent bytes compress, the mantissa bytes do not); returns the
+    bytes written. `unpack_dir` restores the files bit for bit."""
+    arrays = {}
+    for name in sorted(os.listdir(ckpt_dir)):
+        if not name.endswith(".npz"):
+            continue
+        with np.load(os.path.join(ckpt_dir, name)) as data:
+            for key in data.files:
+                a = data[key]
+                tag = f"{name}|{key}"
+                if a.dtype == np.float32:
+                    shape = "x".join(map(str, a.shape))
+                    arrays[tag + _PLANES + shape] = np.ascontiguousarray(
+                        a.reshape(-1).view(np.uint8).reshape(-1, 4).T)
+                else:
+                    arrays[tag] = a
+    np.savez_compressed(out_path, **arrays)
+    return os.path.getsize(out_path)
+
+
+def unpack_dir(path: str, out_dir: str) -> list:
+    """Write the checkpoints `pack_dir` packed into `out_dir`; their
+    names."""
+    files: dict = {}
+    with np.load(path) as data:
+        for tag in data.files:
+            a = data[tag]
+            if _PLANES in tag:
+                tag, shape = tag.split(_PLANES)
+                dims = tuple(int(d) for d in shape.split("x")) if shape \
+                    else ()
+                a = np.ascontiguousarray(a.T).reshape(-1).view(
+                    np.float32).reshape(dims)
+            name, key = tag.split("|", 1)
+            files.setdefault(name, {})[key] = a
+    os.makedirs(out_dir, exist_ok=True)
+    for name, arrays in files.items():
+        np.savez(os.path.join(out_dir, name), **arrays)
+    return sorted(files)

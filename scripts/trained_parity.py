@@ -1,22 +1,30 @@
 #!/usr/bin/env python
 """Hold card-trained bench checkpoints against the JAX package on the CPU,
-at full width: the same weights, the same pages, float32 on both sides.
+at full width: the same weights, the same pages, the same compute dtype
+on both sides (float32 unless --dtype says otherwise).
 
     JAX_PLATFORMS=cpu python scripts/trained_parity.py \
-        --packed DIR/bench_ckpts.npz [--pages 1,2] [--out parity.json]
+        --packed DIR/bench_ckpts.npz [--pages 1,2] [--dtype float32]
+        [--sides jax,torch] [--out parity.json]
 
 `--packed` is the file that `chip_smoke.py --details DIR/x.json` writes
-into DIR: the port's bench checkpoints, packed by `pack` below so that
-both fit in what a card run may bring back. The script renders the
+into DIR: the port's bench checkpoints, packed by
+`sbb_textline_detection_tpu_torch.models.checkpoint.pack_dir` so that both
+fit in what a card run may bring back. The script renders the
 bench's hard_mix pages at 3508 x 2480
 (sbb_textline_detection_tpu_torch.bench.bench_pages: page 1 is the 18
 degree skew with figures, page 2 the vertical text), serves each by
-process_image in each package, one package per child process (so that one
-process holds one framework's memory), with DEFAULT_CONFIG but
-`compute_dtype="float32"` and `tile_chunk=TILE_CHUNK` (the same tile
-chunks on both sides, at a fraction of the default's activation memory),
-and compares per page:
-  * the region count;
+process_image on each of two sides, one child process a side (so that
+one process holds one framework's memory), with DEFAULT_CONFIG but the
+side's compute dtype (`--dtype` by default; bfloat16 is what the card
+serves) and, on the CPU, `tile_chunk=TILE_CHUNK` (the same tile chunks on
+both sides, at a fraction of the default's activation memory). A side is
+`PKG[@DEVICE][:DTYPE]`: `jax` (the JAX package, CPU only) or `torch` (the
+port, on `cpu` or `cuda`), so `--sides torch@cuda:bfloat16,torch@cuda:
+float32` holds the card's two dtypes against each other where there is
+no JAX. It compares per page:
+  * the region count, and the regions of each side that match none of
+    the other's;
   * the IoU of matched regions (their PAGE-XML polygons rasterized at scan
     size, matched greedily by IoU);
   * lines per matched region;
@@ -42,63 +50,33 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_PLANES = "|f32planes|"
 PAGE_HW = (3508, 2480)
 TILE_CHUNK = 16
 # seconds each package's child process may take
 SIDE_TIMEOUT = 3600
 
 
-def pack(ckpt_dir: str, out_path: str) -> int:
-    """Write every `.npz` checkpoint of `ckpt_dir` into one compressed
-    `.npz`, each float32 array as its four byte planes (the sign and
-    exponent bytes compress, the mantissa bytes do not); returns the
-    bytes written. `unpack` restores the files bit for bit."""
-    arrays = {}
-    for name in sorted(os.listdir(ckpt_dir)):
-        if not name.endswith(".npz"):
-            continue
-        with np.load(os.path.join(ckpt_dir, name)) as data:
-            for key in data.files:
-                a = data[key]
-                tag = f"{name}|{key}"
-                if a.dtype == np.float32:
-                    shape = "x".join(map(str, a.shape))
-                    arrays[tag + _PLANES + shape] = np.ascontiguousarray(
-                        a.reshape(-1).view(np.uint8).reshape(-1, 4).T)
-                else:
-                    arrays[tag] = a
-    np.savez_compressed(out_path, **arrays)
-    return os.path.getsize(out_path)
+def _parse_side(spec: str, dtype: str):
+    """(package, device, dtype) of a side `PKG[@DEVICE][:DTYPE]`: `jax`
+    (the CPU only) or `torch`, on `cpu` unless a device is given, in
+    `dtype` unless one is given."""
+    spec, _, side_dtype = spec.partition(":")
+    package, _, device = spec.partition("@")
+    device = device or "cpu"
+    if package not in ("jax", "torch") or (package == "jax"
+                                           and device != "cpu"):
+        raise ValueError(f"no such side: {spec!r}")
+    return package, device, side_dtype or dtype
 
 
-def unpack(path: str, out_dir: str) -> list:
-    """Write the checkpoints `pack` packed into `out_dir`; their names."""
-    files: dict = {}
-    with np.load(path) as data:
-        for tag in data.files:
-            a = data[tag]
-            if _PLANES in tag:
-                tag, shape = tag.split(_PLANES)
-                dims = tuple(int(d) for d in shape.split("x")) if shape \
-                    else ()
-                a = np.ascontiguousarray(a.T).reshape(-1).view(
-                    np.float32).reshape(dims)
-            name, key = tag.split("|", 1)
-            files.setdefault(name, {})[key] = a
-    os.makedirs(out_dir, exist_ok=True)
-    for name, arrays in files.items():
-        np.savez(os.path.join(out_dir, name), **arrays)
-    return sorted(files)
-
-
-def _serve_side(side: str, work: str) -> None:
-    """In a child process: serve the pages in `work` with one package and
-    write what came out to `work/side_<side>.json`."""
+def _serve_side(spec: str, index: int, work: str, dtype: str) -> None:
+    """In a child process: serve the pages in `work` with one side and
+    write what came out to `work/side_<index>.json`."""
     import dataclasses
     import xml.etree.ElementTree as ET
 
-    if side == "jax":
+    package, device, dtype = _parse_side(spec, dtype)
+    if package == "jax":
         from sbb_textline_detection_tpu.core.config import DEFAULT_CONFIG
         from sbb_textline_detection_tpu.models.runner import ModelBundle
         from sbb_textline_detection_tpu.pipeline.detector import (
@@ -111,14 +89,16 @@ def _serve_side(side: str, work: str) -> None:
         from sbb_textline_detection_tpu_torch.pipeline.detector import (
             TextlineDetector)
 
-    cfg = dataclasses.replace(DEFAULT_CONFIG, runtime=dataclasses.replace(
-        DEFAULT_CONFIG.runtime, compute_dtype="float32",
-        tile_chunk=TILE_CHUNK))
+    runtime = dataclasses.replace(DEFAULT_CONFIG.runtime,
+                                  compute_dtype=dtype)
+    if device == "cpu":
+        runtime = dataclasses.replace(runtime, tile_chunk=TILE_CHUNK)
+    cfg = dataclasses.replace(DEFAULT_CONFIG, runtime=runtime)
     ckpt = os.path.join(work, "ckpt")
-    if side == "jax":
+    if package == "jax":
         models = ModelBundle.from_dir(ckpt, cfg.runtime, cfg.model_names)
     else:
-        models = ModelBundle.from_dir(ckpt, cfg.runtime, "cpu",
+        models = ModelBundle.from_dir(ckpt, cfg.runtime, device,
                                       cfg.model_names)
     det = TextlineDetector(models, cfg)
     with np.load(os.path.join(work, "pages.npz")) as data:
@@ -135,9 +115,9 @@ def _serve_side(side: str, work: str) -> None:
             "page_coord": [int(v) for v in res.page_coord],
             "degraded": bool(getattr(res, "degraded", False)),
             "fallbacks": dict(getattr(det, "fallbacks", {}) or {})}
-        print(f"[{side}] page {i}: {out[str(i)]['seconds']:.1f} s, "
+        print(f"[{spec}] page {i}: {out[str(i)]['seconds']:.1f} s, "
               f"{len(res.contours)} regions", file=sys.stderr, flush=True)
-    with open(os.path.join(work, f"side_{side}.json"), "w") as f:
+    with open(os.path.join(work, f"side_{index}.json"), "w") as f:
         json.dump(out, f)
 
 
@@ -173,59 +153,64 @@ def _iou(a, b) -> float:
     return float(np.logical_and(a, b).sum() / union) if union else 1.0
 
 
-def compare_page(jax_side: dict, torch_side: dict, h: int, w: int) -> dict:
-    """The two packages' results on one page, side by side."""
-    jr, tr = _regions(jax_side["xml"]), _regions(torch_side["xml"])
-    jm = _raster([p for p, _ in jr], h, w)
-    tm = _raster([p for p, _ in tr], h, w)
-    pairs = sorted(((_iou(a, b), i, j) for i, a in enumerate(jm)
-                    for j, b in enumerate(tm)), reverse=True)
-    used_j, used_t, matched = set(), set(), []
+def _box_area(pts, mask) -> dict:
+    """(x0, y0, x1, y1) and pixel area of a region's polygon."""
+    return {"box": [int(v) for v in (*pts.min(0), *pts.max(0))],
+            "area": int(mask.sum())}
+
+
+def compare_page(a_side: dict, b_side: dict, h: int, w: int,
+                 names=("jax", "torch")) -> dict:
+    """Two sides' results on one page, side by side; `names` label the
+    sides in what it returns."""
+    na, nb = names
+    ar, br = _regions(a_side["xml"]), _regions(b_side["xml"])
+    am = _raster([p for p, _ in ar], h, w)
+    bm = _raster([p for p, _ in br], h, w)
+    pairs = sorted(((_iou(x, y), i, j) for i, x in enumerate(am)
+                    for j, y in enumerate(bm)), reverse=True)
+    used_a, used_b, matched = set(), set(), []
     for iou, i, j in pairs:
-        if iou <= 0.0 or i in used_j or j in used_t:
+        if iou <= 0.0 or i in used_a or j in used_b:
             continue
-        used_j.add(i)
-        used_t.add(j)
+        used_a.add(i)
+        used_b.add(j)
         matched.append((i, j, iou))
-    jslope, tslope = jax_side["slopes"], torch_side["slopes"]
-    ju = np.zeros((h, w), bool)
-    tu = np.zeros((h, w), bool)
-    for m in jm:
-        ju |= m
-    for m in tm:
-        tu |= m
+    aslope, bslope = a_side["slopes"], b_side["slopes"]
+    au = np.zeros((h, w), bool)
+    bu = np.zeros((h, w), bool)
+    for m in am:
+        au |= m
+    for m in bm:
+        bu |= m
     ious = [iou for _, _, iou in matched]
     worst = min(matched, key=lambda m: m[2], default=None)
     return {
-        "regions": {"jax": len(jr), "torch": len(tr)},
+        "regions": {na: len(ar), nb: len(br)},
         "matched": len(matched),
+        # the regions of each side that match none of the other's
+        "unmatched": {
+            na: [_box_area(ar[i][0], am[i]) for i in range(len(ar))
+                 if i not in used_a],
+            nb: [_box_area(br[j][0], bm[j]) for j in range(len(br))
+                 if j not in used_b]},
         "region_iou_min": min(ious) if ious else None,
         "region_iou_mean": float(np.mean(ious)) if ious else None,
-        # the matched pair of least IoU: (x0, y0, x1, y1) and pixel area
-        # of each side's polygon
+        # the matched pair of least IoU
         "worst_pair": None if worst is None else {
-            side: {"box": [int(v) for v in (*pts.min(0), *pts.max(0))],
-                   "area": int(mask.sum())}
-            for side, pts, mask in (("jax", jr[worst[0]][0], jm[worst[0]]),
-                                    ("torch", tr[worst[1]][0],
-                                     tm[worst[1]]))},
-        "lines_equal": sum(jr[i][1] == tr[j][1] for i, j, _ in matched),
-        "lines_diff": [(i, j, jr[i][1], tr[j][1]) for i, j, _ in matched
-                       if jr[i][1] != tr[j][1]],
+            na: _box_area(ar[worst[0]][0], am[worst[0]]),
+            nb: _box_area(br[worst[1]][0], bm[worst[1]])},
+        "lines_equal": sum(ar[i][1] == br[j][1] for i, j, _ in matched),
+        "lines_diff": [(i, j, ar[i][1], br[j][1]) for i, j, _ in matched
+                       if ar[i][1] != br[j][1]],
         "slope_max_abs_diff": max(
-            (abs(jslope[i] - tslope[j]) for i, j, _ in matched),
+            (abs(aslope[i] - bslope[j]) for i, j, _ in matched),
             default=None),
-        "slopes_equal": sum(jslope[i] == tslope[j] for i, j, _ in matched),
-        "mask_agree_share": float((ju == tu).mean()),
-        "mask_iou": _iou(ju, tu),
-        "page_coord": {"jax": jax_side["page_coord"],
-                       "torch": torch_side["page_coord"]},
-        "seconds": {"jax": jax_side["seconds"],
-                    "torch": torch_side["seconds"]},
-        "degraded": {"jax": jax_side["degraded"],
-                     "torch": torch_side["degraded"]},
-        "fallbacks": {"jax": jax_side["fallbacks"],
-                      "torch": torch_side["fallbacks"]},
+        "slopes_equal": sum(aslope[i] == bslope[j] for i, j, _ in matched),
+        "mask_agree_share": float((au == bu).mean()),
+        "mask_iou": _iou(au, bu),
+        **{key: {na: a_side[key], nb: b_side[key]}
+           for key in ("page_coord", "seconds", "degraded", "fallbacks")},
     }
 
 
@@ -246,57 +231,73 @@ def _quality(side: dict, layout) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--packed", help="checkpoints packed by pack()")
+    ap.add_argument("--packed", help="checkpoints packed by pack_dir()")
     ap.add_argument("--pages", default="1,2",
                     help="hard_mix page indices, comma-separated")
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="compute dtype of a side that names none")
+    ap.add_argument("--sides", default="jax,torch",
+                    help="the two sides, each PKG[@DEVICE][:DTYPE] "
+                         "(PKG jax or torch, DEVICE cpu or cuda)")
     ap.add_argument("--out", help="write the comparison (JSON) here")
-    ap.add_argument("--side", choices=["jax", "torch"],
-                    help=argparse.SUPPRESS)
+    ap.add_argument("--side", help=argparse.SUPPRESS)
+    ap.add_argument("--index", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--work", help=argparse.SUPPRESS)
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     if args.side:
-        _serve_side(args.side, args.work)
+        _serve_side(args.side, args.index, args.work, args.dtype)
         return 0
     if not args.packed:
         ap.error("--packed is required")
+    names = args.sides.split(",")
+    if len(names) != 2 or len(set(names)) != 2:
+        ap.error("--sides takes two different sides")
+    for name in names:
+        _parse_side(name, args.dtype)
 
     from sbb_textline_detection_tpu_torch import bench
+    from sbb_textline_detection_tpu_torch.models import checkpoint
 
+    bench.ensure_native()
     want = [int(p) for p in args.pages.split(",")]
     h, w = PAGE_HW
     with tempfile.TemporaryDirectory() as work:
-        unpack(args.packed, os.path.join(work, "ckpt"))
+        checkpoint.unpack_dir(args.packed, os.path.join(work, "ckpt"))
         pages, layouts = bench.bench_pages(max(want) + 1, h, w)
         np.savez(os.path.join(work, "pages.npz"),
                  **{f"p{i}": pages[i] for i in want})
         env = dict(os.environ, JAX_PLATFORMS="cpu")
         sides = {}
-        for side in ("jax", "torch"):
+        for index, name in enumerate(names):
             t0 = time.time()
             subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--side", side, "--work", work],
+                            "--side", name, "--index", str(index),
+                            "--work", work, "--dtype", args.dtype],
                            check=True, env=env, timeout=SIDE_TIMEOUT)
-            with open(os.path.join(work, f"side_{side}.json")) as f:
-                sides[side] = json.load(f)
-            print(f"{side}: {time.time() - t0:.1f} s in all", file=sys.stderr,
-                  flush=True)
+            with open(os.path.join(work, f"side_{index}.json")) as f:
+                sides[name] = json.load(f)
+            print(f"{name}: {time.time() - t0:.1f} s in all",
+                  file=sys.stderr, flush=True)
     mix = bench.bench_mix(max(want) + 1)
-    report = {"pages": {}, "tile_chunk": TILE_CHUNK,
-              "compute_dtype": "float32", "page_hw": [h, w]}
+    report = {"pages": {}, "sides": {
+        name: dict(zip(("package", "device", "compute_dtype"),
+                       _parse_side(name, args.dtype))) for name in names},
+        "tile_chunk_on_cpu": TILE_CHUNK, "page_hw": [h, w]}
     for i, layout in zip(want, [layouts[i] for i in want]):
-        row = compare_page(sides["jax"][str(i)], sides["torch"][str(i)],
-                           h, w)
+        row = compare_page(sides[names[0]][str(i)], sides[names[1]][str(i)],
+                           h, w, names)
         row["mix"] = list(mix[i])
         row["quality"] = {s: _quality(sides[s][str(i)], layout)
-                          for s in ("jax", "torch")}
+                          for s in names}
         report["pages"][str(i)] = row
     report["quality_mean"] = {
         s: {k: float(np.nanmean([r["quality"][s][k]
                                  for r in report["pages"].values()]))
             for k in ("region_recall", "region_precision", "line_count_mae",
                       "line_recall")}
-        for s in ("jax", "torch")}
+        for s in names}
     print(json.dumps(report), flush=True)
     if args.out:
         with open(args.out, "w") as f:

@@ -10,10 +10,8 @@ import importlib.util
 import math
 import pathlib
 import subprocess
-import threading
 
 import numpy as np
-import pytest
 import torch
 
 from sbb_textline_detection_tpu.training import train as jtrain
@@ -148,29 +146,32 @@ def test_existing_checkpoints_are_not_trained_again(monkeypatch, tmp_path):
     assert len(calls) == 1
 
 
-def test_data_drawn_ahead_is_the_same_stream():
-    """The training data drawn on a thread is the generator's own stream,
-    and the thread ends when the consumer stops."""
-    def batches(seed):
-        rng = np.random.default_rng(seed)
-        while True:
-            yield rng.integers(0, 100, 5)
+def test_packed_checkpoints_unpack_bit_for_bit(tmp_path):
+    """checkpoint.pack_dir / unpack_dir (how the card's bench checkpoints
+    come back for scripts/trained_parity.py) give back every checkpoint of
+    a directory bit for bit, and the JAX package loads what comes out."""
+    from sbb_textline_detection_tpu.models import checkpoint as jckpt
 
-    ahead, plain = bench._drawn_ahead(batches(3)), batches(3)
-    for _ in range(6):
-        np.testing.assert_array_equal(next(ahead), next(plain))
-    ahead.close()
-    assert not any(t.name == "bench-data" and t.is_alive()
-                   for t in threading.enumerate())
-
-    def failing():
-        yield 1
-        raise ValueError("drawn")
-
-    it = bench._drawn_ahead(failing())
-    assert next(it) == 1
-    with pytest.raises(ValueError, match="drawn"):
-        next(it)
+    src, out = tmp_path / "src", tmp_path / "out"
+    src.mkdir()
+    for i, spec in enumerate((PAGE_TINY, DUAL_TINY)):
+        checkpoint.save(str(src / f"{spec.name}.npz"), spec,
+                        checkpoint.random_init(
+                            spec, torch.Generator().manual_seed(i)))
+    (src / "notes.txt").write_text("not a checkpoint")
+    size = checkpoint.pack_dir(str(src), str(tmp_path / "packed.npz"))
+    assert size == (tmp_path / "packed.npz").stat().st_size
+    assert checkpoint.unpack_dir(str(tmp_path / "packed.npz"), str(out)) == \
+        sorted(f"{spec.name}.npz" for spec in (PAGE_TINY, DUAL_TINY))
+    for spec in (PAGE_TINY, DUAL_TINY):
+        with np.load(src / f"{spec.name}.npz") as a, \
+                np.load(out / f"{spec.name}.npz") as b:
+            assert sorted(a.files) == sorted(b.files)
+            for key in a.files:
+                assert a[key].dtype == b[key].dtype
+                assert a[key].tobytes() == b[key].tobytes()
+        jspec, _ = jckpt.load(str(out / f"{spec.name}.npz"))
+        assert jspec.name == spec.name
 
 
 def test_hard_mix_pages_equal_jax():
