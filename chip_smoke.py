@@ -24,7 +24,16 @@ Phases (any failure raises and the script exits non-zero):
      TFLOP/s); the resident deskew chain on
      the card against the same chain on the CPU (plain version) on drawn
      text lines; the dual-head U-Net forward on the card against the CPU
-     in float32;
+     in float32; then in bf16, as users run it: every ConvGN's float32
+     conv sum on the card against a float64 conv of the same bf16
+     operands (within CONV_SUM_RTOL of the sum of |products|), the head's
+     logits likewise, once as the forward runs them (TF32 off) and once
+     with TF32 on, which must exceed the bound, and the card's bf16
+     logits against the CPU's (BF16_LOGIT_MEAN, BF16_LOGIT_MAX,
+     BF16_ARGMAX_AGREE), each ConvGN's GroupNorm output against the CPU's
+     on the CPU block's input (BF16_GN_MAX_ABS, which the conv's sum
+     rounded to bf16 first must exceed in every block), and the bf16
+     forward's time as served and inside full_f32;
   4. (every serving run below uses DEFAULT_CONFIG with the deskew buffer
      cap lifted to SMOKE_BUF_MAX, see there; flags_phase also serves the
      reference's cap) a full-width random-weight bundle (bf16 compute,
@@ -116,7 +125,9 @@ Phases (any failure raises and the script exits non-zero):
      that is not finite (the gates are not enforced here). One bench page
      more runs under torch.profiler (the card's idle share on a trained
      page; the Radon kernel held against its plain version on that page's
-     canvases, their share of set pixels). With --details, the two
+     canvases, their share of set pixels). Page BENCH_SPECK_PAGE's region
+     count and precision are printed on a line of their own. With
+     --details, the two
      checkpoints are packed beside the details file
      (models/checkpoint.pack_dir) for scripts/trained_parity.py's
      comparison with the JAX package on the CPU;
@@ -154,20 +165,19 @@ Phases (any failure raises and the script exits non-zero):
      NCCL group on a (1, 1) mesh must equal the plain step to
      MESH_TRAIN_RTOL; with two or more cards, `parallel.dryrun --devices 2
      --backend nccl` runs too.
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. The kernel line's launches add up phases
-4, 4a (its children's too), 5, 6 (the flags), 7 (a)-(d), 7a (warm_up and
-both passes), 8 (c), 9 and 10. With --only batch, phases 4 (classic
-bundle), 4a, 5, 7a, 8, 9 and 10 are left out (a shorter run while working
-on the batch); with --only bench, phase 3 and 7a alone run (the default
-runs everything). With --details PATH, the run's details
-(ptxas report, per-page stage timings, kernel times) are written there as
-JSON. After the timed pages, the second page runs once more under
-torch.profiler for its device time by op and the Radon kernel's device
-time (its launches are not counted in the kernel line); a spy keeps the
-inputs of that page's sweeps, on which the kernel is held against its
-plain version, and the kernel, the plain version, the library form and
-the bound are summed.
+The line before the last is {"kernels": [...]}; the last line is {"ok": true,
+"device": {...}}. The kernel line's launches add up phases 4, 4a (its
+children's too), 5, 6 (the flags), 7 (a)-(d), 7a (warm_up and both passes), 8
+(c), 9 and 10. With --only batch, phases 4 (classic bundle), 4a, 5, 7a, 8, 9
+and 10 are left out (a shorter run while working on the batch); with --only
+bench, phase 3's kernel check and 7a alone run (the default runs everything).
+With --details PATH, the run's details (ptxas report, per-page stage
+timings, kernel times) are written there as JSON. After the timed pages, the
+second page runs once more under torch.profiler for its device time by op and
+the Radon kernel's device time (its launches are not counted in the kernel
+line); a spy keeps the inputs of that page's sweeps, on which the kernel is
+held against its plain version, and the kernel, the plain version, the library
+form and the bound are summed.
 """
 
 import argparse
@@ -255,6 +265,31 @@ BATCH_PAGES = ((3508, 0.0), (3508, 8.0), (3508, -15.0), (3508, 0.0),
 BATCH_MASK_LIMIT = 1e-3
 BATCH_PROFILED_PAGES = 4
 BF16_OPS_S = 989e12
+# profile_phase: words in the names of the device kernels summed as
+# convolutions (cuDNN's implicit-GEMM `fprop` kernels, its `convolve` and
+# `conv2d` engines; not its `convert` kernels) and as copies, matched in
+# lower case
+CONV_KERNELS = ("convol", "conv2d", "fprop")
+COPY_KERNELS = ("copy",)
+# unet_phase's bf16 part (_unet_bf16), on DUALHEAD_SPEC at 448 x 448
+# (random weights from SEED): the largest error of a conv sum on the card
+# against float64 over the sum of |products| (a float32 sum of exact bf16
+# products; measured 1.7e-6 at most over the 28 ConvGN, the head 3.6e-7,
+# and 3.2e-4 with TF32, whose operands round at 2^-11), and the card's
+# bf16 logits against the CPU's: mean and max |err| and each head's argmax
+# agreement (measured 0.0100, 0.119, and 0.9899 / 0.9933; NVIDIA H100 80GB
+# HBM3 at 700 W, PERF.md section 6), with about 2x room
+CONV_SUM_RTOL = 1e-5
+BF16_LOGIT_MEAN = 0.02
+BF16_LOGIT_MAX = 0.25
+BF16_ARGMAX_AGREE = 0.98
+# and each ConvGN's float32 GroupNorm output, card against CPU, each block
+# fed the CPU block's input: measured 2.9e-4 at most (ConvGN_11; 7e-6 at
+# the stem), and 1.28e-2 to 2.73e-2 by block with the conv's sum rounded
+# to bf16 before GroupNorm (same card, PERF.md section 6)
+BF16_GN_MAX_ABS = 1e-3
+# the bf16 forward timed as served and inside full_f32, on this many tiles
+BF16_TIMED_TILES = 16
 # ocrd_phase: (y, x) offset of the second page's crop in its larger scan
 OCRD_CROP = (120, 90)
 # mesh_phase: the limit of the (1, 1) training mesh against the plain
@@ -282,6 +317,11 @@ BENCH_R05_TPU = {"region_recall": 1.0, "region_precision": 0.983,
                  "line_count_mae": 0.025, "line_recall": 0.997,
                  "line_recall_vertical": 0.975}
 BENCH_PACK_MAX = 63 * 2 ** 20
+# the hard_mix page (clean, 3 figures/rules) whose region count and
+# precision are printed on their own: where bf16 on the card made a false
+# speck region while the conv's sum was rounded to bf16 before GroupNorm
+# (ROADMAP Queue 3)
+BENCH_SPECK_PAGE = 6
 
 
 def _serve_config(**flags):
@@ -535,7 +575,8 @@ def deskew_phase(dev, details):
 
 
 def unet_phase(dev, details):
-    """Dual-head forward on the card vs the CPU, float32, TF32 off."""
+    """Dual-head forward on the card vs the CPU, float32, TF32 off; then
+    the bf16 forward (_unet_bf16)."""
     import torch
 
     from sbb_textline_detection_tpu_torch.models import checkpoint, registry
@@ -556,6 +597,187 @@ def unet_phase(dev, details):
     torch.testing.assert_close(outs[1], outs[0], rtol=1e-3, atol=1e-3)
     print(f"dual-head forward card == cpu (f32): max |err| {err:.3g}",
           flush=True)
+    _unet_bf16(dev, details, spec, sd, x)
+
+
+def _sum_error(got, xp, w, stride, bias=None):
+    """The largest |got - exact| over the sum of |products| of a conv of
+    `xp` with `w` (float64 on the card; the |bias| adds to the sum). An
+    output whose products are all 0 must be exactly 0, or the ratio is
+    huge."""
+    import torch.nn.functional as F
+
+    x64, w64 = xp.double(), w.double()
+    b64 = None if bias is None else bias.double()
+    exact = F.conv2d(x64, w64, b64, stride=stride)
+    mag = F.conv2d(x64.abs(), w64.abs(), None if b64 is None
+                   else b64.abs(), stride=stride)
+    return float(((got.double() - exact).abs() / mag.clamp_min(1e-300))
+                 .max())
+
+
+def _unet_bf16(dev, details, spec, sd, x):
+    """The bf16 forward that users run, on the same weights and input, as
+    runner._logits serves it: (a) every ConvGN's float32 conv sum on the
+    card (ConvGN.conv_sum, on the block's own input, recorded by
+    unet.trace_blocks) against a float64 conv of the same bf16 operands,
+    within CONV_SUM_RTOL of the sum of |products|, on cuDNN's TF32
+    kernels (its default) and on its float32 ones; the head's logits
+    likewise against float64 on the refine block's output, once as the
+    forward ran them (no TF32) and once more with cuDNN's TF32 switched
+    on for that call alone, which must exceed the bound (the witness
+    that the check sees a 10-bit rounding); (b) the card's logits
+    against the CPU's bf16 forward: mean and max |err| within
+    BF16_LOGIT_MEAN and BF16_LOGIT_MAX, and each head's argmax agreement
+    at least BF16_ARGMAX_AGREE; (c) each ConvGN's float32 GroupNorm
+    output on the card against the CPU's, each card block fed the CPU
+    block's own input (trace_blocks carrying the CPU's outputs), within
+    BF16_GN_MAX_ABS; the same blocks with the conv's sum rounded to bf16
+    before GroupNorm (the port's arithmetic before the repair) must exceed
+    it in every block (the witness that the check sees that rounding). The
+    forward of BF16_TIMED_TILES tiles is timed as served (cuDNN's switch
+    as it is) and inside precision.full_f32, as a bundle that also holds
+    a float32 model serves it."""
+    import torch
+    import torch.nn.functional as F
+
+    from sbb_textline_detection_tpu_torch.models import registry, unet
+    from sbb_textline_detection_tpu_torch.ops import precision, radon_bench
+
+    logits = []
+    for d in ("cpu", dev):
+        m = registry.build_module(spec, torch.bfloat16)
+        m.load_state_dict(sd)
+        m = m.to(d).eval()
+        with torch.no_grad():
+            if not logits:
+                out, cpu_rec = unet.trace_blocks(m, x.permute(0, 3, 1, 2))
+                logits.append(out)
+                continue
+            # as runner._logits serves a bf16 model: TF32 as it is
+            out, rec = unet.trace_blocks(m, x.to(d).permute(0, 3, 1, 2))
+            logits.append(out.cpu())
+            gn_err, gn_err_rounded = _gn_errors(m, x.to(d), cpu_rec)
+            tiles = x.to(d).permute(0, 3, 1, 2).repeat(
+                BF16_TIMED_TILES // x.shape[0], 1, 1, 1)
+            fwd_ms = radon_bench.cuda_time(lambda: m.forward_nchw(tiles), 5)
+            with precision.full_f32():
+                fwd_ms_f32 = radon_bench.cuda_time(
+                    lambda: m.forward_nchw(tiles), 5)
+            worst, worst_tf32 = {}, {}
+            for name, (inp, _, _) in rec.items():
+                block = m.get_submodule(name)
+                xp = block.pad(inp)
+                w = block.conv.weight.to(torch.bfloat16)
+                # cuDNN's TF32 kernels (its default), as served and trained
+                worst_tf32[name] = _sum_error(block.conv_sum(xp), xp, w,
+                                              block.stride)
+                # its float32 kernels, as beside a float32 model
+                with precision.full_f32():
+                    worst[name] = _sum_error(block.conv_sum(xp), xp, w,
+                                             block.stride)
+            head_in = rec["refine"][2].to(torch.float32)
+            head = m.head
+            head_err = _sum_error(out, head_in, head.weight, 1, head.bias)
+            saved = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = True
+            try:
+                tf32 = F.conv2d(head_in, head.weight, head.bias)
+            finally:
+                torch.backends.cudnn.allow_tf32 = saved
+            tf32_err = _sum_error(tf32, head_in, head.weight, 1, head.bias)
+    a, b = logits
+    diff = (a - b).abs()
+    agree, off = [], 0
+    for width in spec.heads:
+        agree.append(float((a[:, off:off + width].argmax(1)
+                            == b[:, off:off + width].argmax(1))
+                           .float().mean()))
+        off += width
+    row = {"conv_sum_rel_err": worst, "conv_sum_rel_err_max":
+           max(worst.values()), "conv_sum_rel_err_tf32": worst_tf32,
+           "conv_sum_rel_err_tf32_max": max(worst_tf32.values()),
+           "head_rel_err": head_err,
+           "head_rel_err_tf32": tf32_err, "logits_mean_abs_err":
+           float(diff.mean()), "logits_max_abs_err": float(diff.max()),
+           "argmax_agree": agree, "gn_max_abs_err": gn_err,
+           "gn_max_abs_err_max": max(gn_err.values()),
+           "gn_max_abs_err_conv_rounded": gn_err_rounded,
+           "forward_ms": fwd_ms, "forward_ms_full_f32": fwd_ms_f32,
+           "timed_tiles": int(tiles.shape[0]), "limits": {
+               "conv_sum_rtol": CONV_SUM_RTOL,
+               "logit_mean": BF16_LOGIT_MEAN, "logit_max": BF16_LOGIT_MAX,
+               "argmax_agree": BF16_ARGMAX_AGREE,
+               "gn_max_abs": BF16_GN_MAX_ABS}}
+    details["unet_bf16"] = row
+    print(f"bf16 dual-head forward: conv sums vs float64 of the bf16 "
+          f"operands, float32 kernels: max rel "
+          f"{row['conv_sum_rel_err_max']:.3g} over "
+          f"{len(worst)} ConvGN (limit {CONV_SUM_RTOL:g}; worst "
+          f"{max(worst, key=worst.get)}), on cuDNN's TF32 kernels "
+          f"{row['conv_sum_rel_err_tf32_max']:.3g}; head {head_err:.3g}, "
+          f"with TF32 "
+          f"{tf32_err:.3g}; card vs cpu logits mean |err| "
+          f"{row['logits_mean_abs_err']:.4g} (limit {BF16_LOGIT_MEAN:g}), "
+          f"max {row['logits_max_abs_err']:.4g} (limit {BF16_LOGIT_MAX:g}),"
+          f" argmax agreement by head {[round(v, 6) for v in agree]} "
+          f"(limit {BF16_ARGMAX_AGREE:g})", flush=True)
+    print(f"bf16 GroupNorm outputs card vs cpu, each block fed the cpu's "
+          f"input: max |err| {row['gn_max_abs_err_max']:.3g} (limit "
+          f"{BF16_GN_MAX_ABS:g}; worst {max(gn_err, key=gn_err.get)}); with "
+          f"the conv's sum rounded to bf16 first: "
+          f"{min(gn_err_rounded.values()):.3g} to "
+          f"{max(gn_err_rounded.values()):.3g}", flush=True)
+    print(f"bf16 dual-head forward of {row['timed_tiles']} tiles: "
+          f"{fwd_ms:.3f} ms as served, {fwd_ms_f32:.3f} ms inside full_f32 "
+          f"(a bundle that also holds a float32 model)", flush=True)
+    bad = [n for n in worst if not max(worst[n], worst_tf32[n])
+           <= CONV_SUM_RTOL]
+    if bad:
+        raise AssertionError(f"conv sums beyond {CONV_SUM_RTOL:g} of "
+                             f"float64: {bad}")
+    if not head_err <= CONV_SUM_RTOL:
+        raise AssertionError(f"the head is not full float32 on the card: "
+                             f"{head_err:.3g}")
+    if not tf32_err > CONV_SUM_RTOL:
+        raise AssertionError(f"the TF32 head stays within {CONV_SUM_RTOL:g}"
+                             f" ({tf32_err:.3g}): the check cannot see TF32")
+    if not (row["logits_mean_abs_err"] <= BF16_LOGIT_MEAN
+            and row["logits_max_abs_err"] <= BF16_LOGIT_MAX
+            and min(agree) >= BF16_ARGMAX_AGREE):
+        raise AssertionError("the card's bf16 forward differs from the "
+                             "CPU's beyond the limits")
+    bad = [n for n, e in gn_err.items() if not e <= BF16_GN_MAX_ABS]
+    if bad:
+        raise AssertionError(f"GroupNorm outputs beyond {BF16_GN_MAX_ABS:g}"
+                             f" of the CPU's: {bad}")
+    blind = [n for n, e in gn_err_rounded.items()
+             if not e > BF16_GN_MAX_ABS]
+    if blind:
+        raise AssertionError("rounding the conv's sum to bf16 before "
+                             f"GroupNorm stays within {BF16_GN_MAX_ABS:g} "
+                             f"in {blind}: the check cannot see it there")
+
+
+def _gn_errors(m, x, cpu_rec):
+    """({block: max |GroupNorm output - the CPU's|}, the same with the
+    conv's sum rounded to bf16 before GroupNorm) of the card's bf16 model
+    `m`, each block fed the CPU block's own input."""
+    import torch
+
+    from sbb_textline_detection_tpu_torch.models import unet
+
+    carry = {name: out for name, (_, _, out) in cpu_rec.items()}
+    _, rec = unet.trace_blocks(m, x.permute(0, 3, 1, 2), carry)
+    err, rounded = {}, {}
+    for name, (inp, gn, _) in rec.items():
+        want = cpu_rec[name][1].to(gn.device)
+        err[name] = float((gn - want).abs().max())
+        block = m.get_submodule(name)
+        r = block.conv_sum(block.pad(inp)).to(torch.bfloat16).float()
+        rounded[name] = float((unet.group_norm(r, r, block.norm) - want)
+                              .abs().max())
+    return err, rounded
 
 
 def _smoke_pages():
@@ -847,13 +1069,18 @@ def profile_phase(det, page, details, key="profile"):
         radon.radon_pairs = real
     launched = radon.launches - before
     radon_ms = sum(ms for k, ms in kernels.items() if "radon" in k)
+    conv_ms, copy_ms = (sum(ms for k, ms in kernels.items()
+                            if any(w in k.lower() for w in words))
+                        for words in (CONV_KERNELS, COPY_KERNELS))
     details[key] = {"page": page[1], "wall_s": wall,
                     "device_s": device, "top_ops": rows[:25],
                     "radon_kernel_ms": radon_ms,
-                    "radon_launches": launched}
+                    "radon_launches": launched,
+                    "conv_kernel_ms": conv_ms, "copy_kernel_ms": copy_ms}
     _print_profile(page[1], wall, device, rows, kernels)
     print(f"  the Radon kernel: {radon_ms:.3f} ms of device time over "
-          f"{launched} launches on this page", flush=True)
+          f"{launched} launches on this page; convolution kernels "
+          f"{conv_ms:.3f} ms, copy kernels {copy_ms:.3f} ms", flush=True)
     if radon_ms <= 0:
         raise RuntimeError("the profile shows no Radon kernel time")
     if len(sweeps) != launched:
@@ -2206,6 +2433,11 @@ def bench_phase(dev, details, details_path=None):
               f"{g['value']} ({'met' if g['met'] else 'NOT met'}; the JAX "
               f"package's TPU run, BENCH_r05.json: {g['tpu_r05']})",
               flush=True)
+    if BENCH_SPECK_PAGE < len(rows):
+        p6 = rows[BENCH_SPECK_PAGE]
+        print(f"bench page {BENCH_SPECK_PAGE}: {p6['regions']} regions, "
+              f"precision {p6['region_precision']}, recall "
+              f"{p6['region_recall']}", flush=True)
     print(f"bench line recall {out['quality']['line_recall']} (TPU r05 "
           f"{BENCH_R05_TPU['line_recall']}), vertical "
           f"{out['quality']['line_recall_vertical']} (TPU r05 "

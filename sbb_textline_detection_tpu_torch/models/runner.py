@@ -38,8 +38,8 @@ TextlineDetector's paths run).
     every data member, and each page's tile chunks are dealt to the
     members in turn (`_tile_labels`).
 
-Float32 modules run inside `ops/precision.full_f32` (no TF32). Every
-entry point is a `utils/stagetime.device_section`, and every forward adds
+Float32 modules run inside `ops/precision.full_f32` (no TF32; see
+`SegmentationModel._logits` for the bf16 ones). Every entry point is a `utils/stagetime.device_section`, and every forward adds
 its FLOPs to the calling thread's stage ledger.
 
 PyTorch runs eagerly, so there is no compile cache and no shape bucketing
@@ -229,6 +229,9 @@ class SegmentationModel:
                 for i, dev in enumerate(mesh.data_members)]
         # FLOPs of one forward per sample, by input shape without the batch
         self._flops_per_sample: Dict[tuple, float] = {}
+        # serve every forward inside precision.full_f32 (_logits); a
+        # ModelBundle that mixes dtypes sets it on its bf16 models too
+        self.without_tf32 = self.computes_f32
 
     @property
     def input_hw(self) -> Tuple[int, int]:
@@ -241,26 +244,27 @@ class SegmentationModel:
         built with dtype float32, and every ResNet50Unet."""
         return getattr(self.module, "dtype", torch.float32) == torch.float32
 
-    def _f32_guard(self):
-        """precision.full_f32() when this model computes in float32 (the
-        reference computes those in full float32, and TF32 convolutions
-        would not); else a null context, so the bf16 TpuUnet is left
-        alone."""
-        return precision.full_f32() if self.computes_f32 \
-            else contextlib.nullcontext()
-
     def _logits(self, x: torch.Tensor,
                 member: Optional[int] = None) -> torch.Tensor:
         """The forward of data member `member`'s module on an NCHW batch
-        on its device (of the model on `device` when `member` is None),
-        inside the TF32 guard. Its FLOPs go to the calling
+        on its device (of the model on `device` when `member` is None).
+        A float32 model runs inside precision.full_f32, as the reference
+        computes it in full float32; so does a bf16 TpuUnet whose bundle
+        also holds a float32 model (`without_tf32`). Other bf16 TpuUnets
+        run on the kernels cuDNN's TF32 switch picks: their convs are
+        float32 sums of bf16 values either way, but the TF32 and the
+        float32 kernels add them in different orders, so the switch must
+        not flip during their forwards. Only float32 forwards flip it
+        (the deskew matmuls leave it alone: full_f32(convs=False)), and
+        only a mixed bundle has both kinds. Its FLOPs go to the calling
         thread's stage ledger: counted on the first forward of each input
         shape (stagetime.count_flops), then scaled by the batch."""
         forward = (self.module if member is None
                    else self.members[member][1]).forward_nchw
         key = tuple(x.shape[1:])
         per_sample = self._flops_per_sample.get(key)
-        with self._f32_guard():
+        with (precision.full_f32() if self.without_tf32
+              else contextlib.nullcontext()):
             if per_sample is None:
                 logits, flops = stagetime.count_flops(forward, x)
                 per_sample = self._flops_per_sample[key] = flops / x.shape[0]
@@ -855,6 +859,13 @@ class ModelBundle:
         self.page = page
         self.region = region
         self.textline = textline
+        # a float32 model's forwards switch cuDNN's TF32 off on the
+        # pipelined batch's threads; beside one, the bf16 models are
+        # served with it off too (SegmentationModel._logits)
+        models = (page, region, textline)
+        if len({m.computes_f32 for m in models}) > 1:
+            for m in models:
+                m.without_tf32 = True
 
     @property
     def is_dual_head(self) -> bool:

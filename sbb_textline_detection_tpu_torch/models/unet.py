@@ -4,13 +4,20 @@ Keras-topology import target for the upstream `.h5` checkpoints (below).
 
 NHWC float32 in [0, 1] at the public `forward`, per-pixel class logits
 out (N, H, W, n_classes); channels_last inside. Matches the Flax module:
-  * 3x3 convs without bias in the compute dtype, Flax "SAME" padding —
-    at stride 2 on an even size that is (0, 1), not (1, 1), so the pad is
-    explicit;
+  * 3x3 convs without bias on operands rounded to the compute dtype,
+    Flax "SAME" padding — at stride 2 on an even size that is (0, 1), not
+    (1, 1), so the pad is explicit;
+  * the conv's products summed in float32; GroupNorm takes its
+    statistics from that sum rounded to the compute dtype and normalises
+    the unrounded sum. That is what XLA compiles the Flax module to: with
+    `xla_allow_excess_precision` (on by default) it drops the bf16 round
+    trip between the conv and the norm in the fusion that normalises, and
+    keeps it in the fusions that reduce;
   * GroupNorm (eps 1e-6, min(32, C) groups) and tanh-approximated GELU in
     float32, then a cast back to the compute dtype;
   * a stride-2 stem, nearest 2x upsampling with skip concatenation, a
-    full-resolution refine conv, and a float32 1x1 head with bias.
+    full-resolution refine conv, and a float32 1x1 head with bias, in full
+    float32 (no TF32) in either compute dtype (`_Head`).
 Submodule names follow the Flax tree (stem, ConvGN_i, refine, head), so
 checkpoint.params_from_flax maps one onto the other by name.
 """
@@ -22,6 +29,8 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from sbb_textline_detection_tpu_torch.ops import precision
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -35,15 +44,18 @@ def _same_pad(size: int, k: int, stride: int):
     return total // 2, total - total // 2
 
 
-def group_norm(x: torch.Tensor, norm: nn.GroupNorm) -> torch.Tensor:
-    """Flax GroupNorm in float32: var = E[x^2] - E[x]^2 clipped at 0 (its
-    default fast variance), y = (x - mean) * rsqrt(var + eps) * scale + bias.
-    Group statistics are means of per-channel means (groups are equal-
-    sized), which keeps the NHWC activation in its memory layout."""
+def group_norm(x: torch.Tensor, s: torch.Tensor,
+               norm: nn.GroupNorm) -> torch.Tensor:
+    """Flax GroupNorm in float32 with its statistics taken over `s` (x,
+    or x as the reference rounds it for them: ConvGN.conv_gn): var =
+    E[s^2] - E[s]^2 clipped at 0 (Flax's default fast variance), y = (x -
+    E[s]) * rsqrt(var + eps) * scale + bias. Group statistics are means
+    of per-channel means (groups are equal-sized), which keeps the NHWC
+    activation in its memory layout."""
     n, c = x.shape[:2]
     g = norm.num_groups
-    mean = x.mean(dim=(2, 3)).reshape(n, g, c // g).mean(-1)
-    mean2 = (x * x).mean(dim=(2, 3)).reshape(n, g, c // g).mean(-1)
+    mean = s.mean(dim=(2, 3)).reshape(n, g, c // g).mean(-1)
+    mean2 = (s * s).mean(dim=(2, 3)).reshape(n, g, c // g).mean(-1)
     var = torch.clamp(mean2 - mean * mean, min=0.0)
     mean = mean.repeat_interleave(c // g, dim=1)
     var = var.repeat_interleave(c // g, dim=1)
@@ -53,7 +65,8 @@ def group_norm(x: torch.Tensor, norm: nn.GroupNorm) -> torch.Tensor:
 
 
 class ConvGN(nn.Module):
-    """3x3 conv + GroupNorm + GELU; the norm runs in float32."""
+    """3x3 conv + GroupNorm + GELU; the norm runs in float32 on the conv's
+    float32 sum (conv_gn)."""
 
     def __init__(self, in_ch: int, features: int, stride: int = 1,
                  dtype: torch.dtype = torch.bfloat16):
@@ -64,16 +77,50 @@ class ConvGN(nn.Module):
         self.norm = nn.GroupNorm(min(32, features), features, eps=1e-6)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.gelu(self.conv_gn(x), approximate="tanh").to(self.dtype)
+
+    def conv_gn(self, x: torch.Tensor) -> torch.Tensor:
+        """The block before GELU: the conv's float32 sum through
+        GroupNorm, float32 (N, features, H', W'). The statistics come
+        from the sum rounded to the compute dtype, the normalised values
+        from the unrounded sum: the JAX package's compiled forward keeps
+        the conv's bf16 round trip inside the fusions that reduce it and
+        drops it in the one that normalises."""
+        x = self.conv_sum(self.pad(x))
+        return group_norm(x, x.to(self.dtype).to(torch.float32), self.norm)
+
+    def pad(self, x: torch.Tensor) -> torch.Tensor:
+        """Flax's SAME padding of the block's input."""
         ph = _same_pad(x.shape[2], 3, self.stride)
         pw = _same_pad(x.shape[3], 3, self.stride)
-        x = self._conv(F.pad(x, (pw[0], pw[1], ph[0], ph[1])))
-        x = group_norm(x.to(torch.float32), self.norm)
-        return F.gelu(x, approximate="tanh").to(self.dtype)
+        return F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
 
-    def _conv(self, x: torch.Tensor) -> torch.Tensor:
-        """The conv on the padded input (what a tensor-parallel block
-        splits by output channel, parallel/mesh.py)."""
-        return F.conv2d(x, self.conv.weight.to(self.dtype), stride=self.stride)
+    def conv_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv on the padded input, float32 out (what a
+        tensor-parallel block splits by output channel, parallel/mesh.py).
+        Input and weight are rounded to the compute dtype and the conv runs
+        on them in float32: a product of two bf16 values is exact in
+        float32, and so is a bf16 value in TF32 (8 significant bits of
+        11), so the result is a float32 sum of the exact products whether
+        cuDNN uses TF32 or not. TF32 changes the speed and the order of
+        the sum, so its switch must not flip during a served forward
+        (runner.SegmentationModel._logits)."""
+        w = self.conv.weight.to(self.dtype).to(torch.float32)
+        return F.conv2d(x.to(self.dtype).to(torch.float32), w,
+                        stride=self.stride)
+
+
+class _Head(nn.Conv2d):
+    """The float32 1x1 head with bias, computed as a matmul over the
+    channels in full float32, as the reference's float32 head conv is. A
+    matmul reads only the matmul TF32 switch, which full_f32(convs=False)
+    turns off without touching cuDNN's: the bf16 convs of other threads
+    sum in the order that one picks (runner.SegmentationModel._logits)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with precision.full_f32(convs=False):
+            return F.linear(x.permute(0, 2, 3, 1), self.weight.flatten(1),
+                            self.bias).permute(0, 3, 1, 2)
 
 
 class TpuUnet(nn.Module):
@@ -103,7 +150,7 @@ class TpuUnet(nn.Module):
             self.add_module(f"ConvGN_{i}", b)
         self.n_blocks = len(blocks)
         self.refine = ConvGN(ch, refine_width, 1, dtype)
-        self.head = nn.Conv2d(refine_width, n_classes, 1, bias=True)
+        self.head = _Head(refine_width, n_classes, 1, bias=True)
 
     def _block(self, i: int) -> ConvGN:
         return getattr(self, f"ConvGN_{i}")
@@ -132,6 +179,36 @@ class TpuUnet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(N, H, W, C) float32 -> (N, H, W, n_classes) float32 logits."""
         return self.forward_nchw(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def trace_blocks(model: TpuUnet, x: torch.Tensor, carry=None):
+    """model.forward_nchw(x) with every ConvGN's input, its float32
+    GroupNorm output (ConvGN.conv_gn) and its output recorded by submodule
+    name, in call order. With `carry` ({name: NCHW tensor}), the forward
+    goes on from carry[name] in place of that block's own output, so that
+    each block is fed a reference's input and its error is its own, not
+    the drift of the blocks before it. Returns (logits, {name: (input,
+    gn, output)})."""
+    records = {}
+
+    def hook(name):
+        def record(block, args, out):
+            records[name] = (args[0], block.conv_gn(args[0]), out)
+            if carry is not None and name in carry:
+                return carry[name].to(out.device, out.dtype).contiguous(
+                    memory_format=torch.channels_last)
+            return None
+        return record
+
+    handles = [block.register_forward_hook(hook(name))
+               for name, block in model.named_modules()
+               if isinstance(block, ConvGN)]
+    try:
+        logits = model.forward_nchw(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return logits, records
 
 
 # ---------------------------------------------------------------------------

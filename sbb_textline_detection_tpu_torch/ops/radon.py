@@ -121,7 +121,7 @@ def radon_pairs_plain(canvases: torch.Tensor, cosv: torch.Tensor,
     c = float(s // 2)
     idx = torch.arange(s, dtype=torch.float32, device=dev)
     out = []
-    with precision.full_f32():
+    with precision.full_f32(convs=False):
         for k0 in range(0, ridx.shape[0], _PLAIN_CHUNK):
             ri = ridx[k0:k0 + _PLAIN_CHUNK]
             ai = aidx[k0:k0 + _PLAIN_CHUNK]

@@ -156,10 +156,11 @@ def _column_parallel(x, conv, group):
 
 class _ColumnParallelConvGN(unet.ConvGN):
     """A ConvGN whose conv keeps a slice of its output channels
-    (shard_module)."""
+    (shard_module). The slices it gathers are the conv's float32 sums, so
+    GroupNorm sees the sum it sees unsharded, rounded nowhere."""
 
-    def _conv(self, x):
-        return _column_parallel(x, super()._conv, self.tp_group)
+    def conv_sum(self, x):
+        return _column_parallel(x, super().conv_sum, self.tp_group)
 
 
 class _ColumnParallelConv2d(nn.Conv2d):

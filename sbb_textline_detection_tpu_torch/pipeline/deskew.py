@@ -167,7 +167,7 @@ def _hat_projection_rows(m: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
     A = _hat(sy[None, :, None] - fy[:, None, :])      # (B, s_bin, y)
     gx = -b * (sx - cx0) + float(K)                    # (B, bufW)
     Bm = _hat(sx[None, :, None] - gx[:, None, :])     # (B, u_bin, x)
-    with precision.full_f32():
+    with precision.full_f32(convs=False):
         U = torch.bmm(torch.bmm(A, m), Bm.transpose(1, 2))
     n = m.shape[0]
     stagetime.add(0.0, 2.0 * n * bufH * bufW * (bufH + bufW))

@@ -35,6 +35,29 @@ no JAX. It compares per page:
     port, the same scorer for both), per page and its mean over the
     pages.
 It prints one JSON object and writes it to `--out`.
+
+With `--layers PAGE` it replays the dual-head model layer by layer on
+that page's tiles instead of serving pages:
+
+    JAX_PLATFORMS=cpu python scripts/trained_parity.py --packed P \
+        --layers 6 --dtype bfloat16 --sides jax,torch --capture C.npz
+    python scripts/trained_parity.py --packed P --layers 6 \
+        --sides torch@cuda:bfloat16,torch@cpu:bfloat16 --capture C.npz
+
+The page's tiles are the ones process_image feeds the dual-head model (the port
+on the CPU, DEFAULT_CONFIG in `--dtype`), cut to those that hold the scan-pixel
+box `--box X,Y,W,H` (page 6's bf16 speck by default, SPECK_BOX). A `jax` side
+runs the JAX package's TpuUnet on them, compiled as the package runs it, and
+captures every ConvGN's GroupNorm output and output; with `--capture` those,
+the tiles and the box's tile pixels are saved, and a run whose sides include no
+`jax` (the card's machine has no JAX) reads them back. Every `torch` side then
+feeds each of its ConvGN blocks the JAX block's own input (unet.trace_blocks),
+on the tile that holds most of the box, so that each layer's error is its own,
+and reports per layer the share of its outputs that differ from the JAX side's,
+and the largest difference of its float32 GroupNorm output and of its output.
+Every side reports the region head's logit margin at the box's pixels: the
+text-region logit less the largest other logit of that head, from its own
+forward of the tiles (positive: a region pixel before the mask's morphology).
 """
 
 from __future__ import annotations
@@ -54,6 +77,10 @@ PAGE_HW = (3508, 2480)
 TILE_CHUNK = 16
 # seconds each package's child process may take
 SIDE_TIMEOUT = 3600
+# (x, y, w, h) in scan pixels: the 31 x 18 px region that bf16 on the card
+# added on hard_mix page 6 while the port rounded the conv's sum to bf16
+# before GroupNorm (ROADMAP Queue 3)
+SPECK_BOX = "2114,2321,31,18"
 
 
 def _parse_side(spec: str, dtype: str):
@@ -229,6 +256,205 @@ def _quality(side: dict, layout) -> dict:
             "line_recall": s.line_recall}
 
 
+def box_margins(logits: np.ndarray, pix: np.ndarray, head: int,
+                cls: int) -> dict:
+    """The first head's logit margin at the pixels `pix` ((k, 3) rows of
+    tile, y, x) of NCHW logits: logit `cls` less the largest other logit
+    of the head's `head` classes."""
+    v = logits[pix[:, 0], :head, pix[:, 1], pix[:, 2]]
+    m = v[:, cls] - np.delete(v, cls, axis=1).max(1)
+    return {"min": float(m.min()), "median": float(np.median(m)),
+            "max": float(m.max()), "positive": int((m > 0).sum()),
+            "pixels": int(len(m)), "per_pixel": m.tolist()}
+
+
+class _Captured(BaseException):
+    """Ends process_image once the fused forward has run (a BaseException,
+    so that no fallback rung of the detector takes it)."""
+
+
+def page_tiles(ckpt: str, page: np.ndarray, dtype: str, box):
+    """The dual-head model's input tiles of one page as process_image
+    feeds them (the port on the CPU, DEFAULT_CONFIG in `dtype`), and
+    where the scan-pixel box (x, y, w, h) lands on them: (tiles (n, C, mh,
+    mw) float32, (k, 3) int rows of (tile, y, x))."""
+    import dataclasses
+
+    import torch
+
+    from sbb_textline_detection_tpu_torch.core.config import DEFAULT_CONFIG
+    from sbb_textline_detection_tpu_torch.models.runner import (
+        ModelBundle, SegmentationModel)
+    from sbb_textline_detection_tpu_torch.pipeline.detector import (
+        TextlineDetector)
+
+    cfg = dataclasses.replace(DEFAULT_CONFIG, runtime=dataclasses.replace(
+        DEFAULT_CONFIG.runtime, compute_dtype=dtype, tile_chunk=TILE_CHUNK))
+    models = ModelBundle.from_dir(ckpt, cfg.runtime, "cpu", cfg.model_names)
+    dual = models.region
+    seen, geo = [], {}
+    real_logits = SegmentationModel._logits
+    real_raw = SegmentationModel.predict_dual_tiled_resident_raw
+
+    def spy_logits(self, x, member=None):
+        if self is dual:
+            seen.append(x.detach().to(torch.float32).cpu())
+        return real_logits(self, x, member)
+
+    def spy_raw(self, other, raws, boxes, scaled_hws, margin_ratio=0.1,
+                **kw):
+        raw_hws = kw.get("raw_hws") or [r.shape[:2] for r in raws]
+        geo.update(box=np.asarray(boxes).reshape(-1, 4)[0],
+                   scaled=tuple(scaled_hws[0]), raw=tuple(raw_hws[0]),
+                   margin_ratio=margin_ratio)
+        real_raw(self, other, raws, boxes, scaled_hws, margin_ratio, **kw)
+        raise _Captured
+
+    SegmentationModel._logits = spy_logits
+    SegmentationModel.predict_dual_tiled_resident_raw = spy_raw
+    try:
+        TextlineDetector(models, cfg).process_image(page, "layers.png")
+    except _Captured:
+        pass
+    finally:
+        SegmentationModel._logits = real_logits
+        SegmentationModel.predict_dual_tiled_resident_raw = real_raw
+    if not geo:
+        raise RuntimeError("the page did not take the fused raw path")
+    by, bx, bh, bw = (int(v) for v in geo["box"])
+    (th, tw), (raw_h, raw_w) = geo["scaled"], geo["raw"]
+    margin, sh, sw = dual._stride(geo["margin_ratio"])
+    ny, nx = dual.grid_for(bh, bw, geo["margin_ratio"])
+    tiles = torch.cat(seen).numpy()
+    if len(tiles) != ny * nx:
+        raise RuntimeError(f"{len(tiles)} tiles seen, the grid has "
+                           f"{ny} x {nx}")
+    # scan -> crop (working) pixels, as the PAGE-XML writer maps back
+    x0, y0, w, h = box
+    rows = np.arange(int(np.floor(y0 * th / raw_h)) - by,
+                     int(np.ceil((y0 + h) * th / raw_h)) - by)
+    cols = np.arange(int(np.floor(x0 * tw / raw_w)) - bx,
+                     int(np.ceil((x0 + w) * tw / raw_w)) - bx)
+    r, c = (a.ravel() for a in np.meshgrid(rows, cols, indexing="ij"))
+    pix = np.stack([(r // sh) * nx + c // sw, margin + r % sh,
+                    margin + c % sw], 1)
+    return tiles, pix
+
+
+def _pack_bf16(a: np.ndarray) -> np.ndarray:
+    """float32 values that are bf16 values -> their uint16 bits."""
+    return (a.view(np.uint32) >> 16).astype(np.uint16)
+
+
+def _unpack_bf16(a: np.ndarray) -> np.ndarray:
+    return (a.astype(np.uint32) << 16).view(np.float32)
+
+
+def _save_capture(path, dtype, tiles, pix, cap, logits, blocks) -> None:
+    bits = dtype == "bfloat16"
+    arrays = {"dtype": np.asarray(dtype), "tiles": tiles, "pix": pix,
+              "capture_tile": np.asarray(cap), "logits": logits}
+    for name, (gn, out) in blocks.items():
+        arrays[f"gn/{name}"] = gn
+        arrays[f"out/{name}"] = _pack_bf16(out) if bits else out
+    np.savez_compressed(path, **arrays)
+
+
+def _load_capture(path):
+    with np.load(path) as data:
+        dtype = str(data["dtype"])
+        blocks = {}
+        for key in data.files:
+            if key.startswith("gn/"):
+                name = key[3:]
+                out = data[f"out/{name}"]
+                blocks[name] = (data[key], _unpack_bf16(out)
+                                if dtype == "bfloat16" else out)
+        return (dtype, data["tiles"], data["pix"], int(data["capture_tile"]),
+                data["logits"], blocks)
+
+
+def layers_report(args, names) -> dict:
+    """--layers: the layer-by-layer replay of the module docstring."""
+    import torch
+
+    from sbb_textline_detection_tpu_torch import bench
+    from sbb_textline_detection_tpu_torch.core.config import DEFAULT_CONFIG
+    from sbb_textline_detection_tpu_torch.models import checkpoint, registry
+    from tests.torch_bf16_replay import flax_blocks, layer_rows
+
+    sides = {name: _parse_side(name, args.dtype) for name in names}
+    box = [int(v) for v in args.box.split(",")]
+    cls = DEFAULT_CONFIG.region.text_class_value
+    with tempfile.TemporaryDirectory() as work:
+        ckpt = os.path.join(work, "ckpt")
+        checkpoint.unpack_dir(args.packed, ckpt)
+        path = checkpoint.checkpoint_path(
+            ckpt, DEFAULT_CONFIG.model_names.dualhead)
+        spec, tree = checkpoint.load(path)
+        jax_side = [n for n, s in sides.items() if s[0] == "jax"]
+        if jax_side:
+            dtype = sides[jax_side[0]][2]
+            pages, _ = bench.bench_pages(args.layers + 1, *PAGE_HW)
+            tiles, pix = page_tiles(ckpt, pages[args.layers], dtype, box)
+            used = np.unique(pix[:, 0])
+            cap = int(np.bincount(pix[:, 0]).argmax())
+            pix = np.stack([np.searchsorted(used, pix[:, 0]), pix[:, 1],
+                            pix[:, 2]], 1)
+            tiles = tiles[used]
+            cap = int(np.searchsorted(used, cap))
+            from sbb_textline_detection_tpu.models import checkpoint as jckpt
+
+            jspec, variables = jckpt.load(path)
+            ref_logits, _ = flax_blocks(
+                jspec, variables, tiles.transpose(0, 2, 3, 1), dtype)
+            _, blocks = flax_blocks(
+                jspec, variables, tiles[cap:cap + 1].transpose(0, 2, 3, 1),
+                dtype)
+            if args.capture:
+                _save_capture(args.capture, dtype, tiles, pix, cap,
+                              ref_logits, blocks)
+        elif args.capture:
+            dtype, tiles, pix, cap, ref_logits, blocks = _load_capture(
+                args.capture)
+        else:
+            raise SystemExit("--layers needs a jax side or --capture")
+    head = int(spec.heads[0]) if spec.heads else int(spec.n_classes)
+    report = {"page": args.layers, "box": box, "reference_dtype": dtype,
+              "tiles": int(len(tiles)), "capture_tile": cap,
+              "reference_margins": box_margins(ref_logits, pix, head, cls),
+              "sides": {}}
+    for name, (package, device, side_dtype) in sides.items():
+        if package == "jax":
+            report["sides"][name] = {"margins": report["reference_margins"]}
+            continue
+        model = registry.build_module(spec, getattr(torch, side_dtype))
+        model.load_state_dict(checkpoint.params_from_flax(tree))
+        model = model.to(device).eval()
+        with torch.no_grad():
+            logits = model.forward_nchw(torch.from_numpy(tiles).to(
+                device)).float().cpu().numpy()
+        rows = layer_rows(model, tiles[cap:cap + 1], blocks)
+        report["sides"][name] = {
+            "margins": box_margins(logits, pix, head, cls),
+            "logits_max_abs_vs_reference": float(
+                np.abs(logits - ref_logits).max()),
+            "layers": rows}
+        print(f"[{name}] vs the {dtype} JAX side, each layer fed its input "
+              "(share of outputs that differ, max |gn diff|, max |out "
+              "diff|):", file=sys.stderr, flush=True)
+        for r in rows:
+            print(f"  {r['layer']:10s} {r['differ_share']:.6f} "
+                  f"{r['gn_max_abs']:.3g} {r['out_max_abs']:.3g}",
+                  file=sys.stderr, flush=True)
+    for name, side in report["sides"].items():
+        m = side["margins"]
+        print(f"[{name}] margin at the box: min {m['min']:.4f}, median "
+              f"{m['median']:.4f}, max {m['max']:.4f}, {m['positive']} of "
+              f"{m['pixels']} pixels positive", file=sys.stderr, flush=True)
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--packed", help="checkpoints packed by pack_dir()")
@@ -241,6 +467,15 @@ def main() -> int:
                     help="the two sides, each PKG[@DEVICE][:DTYPE] "
                          "(PKG jax or torch, DEVICE cpu or cuda)")
     ap.add_argument("--out", help="write the comparison (JSON) here")
+    ap.add_argument("--layers", type=int, metavar="PAGE",
+                    help="replay the dual-head model layer by layer on "
+                         "this hard_mix page's tiles (module docstring); "
+                         "any number of sides")
+    ap.add_argument("--box", default=SPECK_BOX,
+                    help="with --layers: X,Y,W,H in scan pixels")
+    ap.add_argument("--capture", help="with --layers: the JAX side's "
+                    "tiles and captures, written by a run with a jax "
+                    "side, read by one without")
     ap.add_argument("--side", help=argparse.SUPPRESS)
     ap.add_argument("--index", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--work", help=argparse.SUPPRESS)
@@ -252,10 +487,17 @@ def main() -> int:
     if not args.packed:
         ap.error("--packed is required")
     names = args.sides.split(",")
-    if len(names) != 2 or len(set(names)) != 2:
-        ap.error("--sides takes two different sides")
     for name in names:
         _parse_side(name, args.dtype)
+    if args.layers is not None:
+        report = layers_report(args, names)
+        print(json.dumps(report), flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(report, f, indent=1)
+        return 0
+    if len(names) != 2 or len(set(names)) != 2:
+        ap.error("--sides takes two different sides")
 
     from sbb_textline_detection_tpu_torch import bench
     from sbb_textline_detection_tpu_torch.models import checkpoint

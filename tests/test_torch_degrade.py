@@ -19,7 +19,7 @@ import torch
 from sbb_textline_detection_tpu.pipeline import detector as jdetector
 from sbb_textline_detection_tpu_torch.core.config import (DEFAULT_CONFIG,
                                                           RuntimeConfig)
-from sbb_textline_detection_tpu_torch.models import checkpoint, runner
+from sbb_textline_detection_tpu_torch.models import checkpoint, runner, unet
 from sbb_textline_detection_tpu_torch.models import registry as treg
 from sbb_textline_detection_tpu_torch.ops import precision
 from sbb_textline_detection_tpu_torch.pipeline import detector
@@ -133,6 +133,72 @@ def test_forwards_run_in_full_f32(tf32_on, entry, dtype):
     assert seen, "the module's forward must have run"
     want = (False, False) if dtype == torch.float32 else (True, True)
     assert set(seen) == {want}
+    assert _tf32() == (True, True)
+
+
+def test_full_f32_without_convs_leaves_cudnn_alone(tf32_on):
+    """full_f32(convs=False), the deskew matmuls' block, turns the matmul
+    switch off and leaves cuDNN's as it is; beside a full block each
+    switch comes back when the last block that turned it off closes."""
+    with precision.full_f32(convs=False):
+        assert _tf32() == (False, True)
+        with precision.full_f32():
+            assert _tf32() == (False, False)
+        assert _tf32() == (False, True)
+    assert _tf32() == (True, True)
+    with precision.full_f32():
+        with precision.full_f32(convs=False):
+            assert _tf32() == (False, False)
+        assert _tf32() == (False, False)
+    assert _tf32() == (True, True)
+
+
+def test_bf16_forward_leaves_cudnn_switch_alone(tf32_on, monkeypatch):
+    """A bf16 TpuUnet's forward never flips cuDNN's TF32 switch, which
+    picks the kernels (and the order of the float32 sums) of the bf16
+    convs on every thread; its float32 head is a matmul with the matmul
+    switch off."""
+    from tests.test_torch_detector import DUAL_TINY
+
+    spec = treg.ModelSpec.from_meta(DUAL_TINY.to_meta())
+    model = treg.build_module(spec, torch.bfloat16).eval()
+    model.load_state_dict(checkpoint.random_init(
+        spec, torch.Generator().manual_seed(0)))
+    seen = []
+    for block in model.modules():
+        if isinstance(block, unet.ConvGN):
+            block.register_forward_pre_hook(lambda *a: seen.append(_tf32()))
+    real = torch.nn.functional.linear
+
+    def linear(*a, **k):
+        seen.append(("head",) + _tf32())
+        return real(*a, **k)
+
+    monkeypatch.setattr(torch.nn.functional, "linear", linear)
+    with torch.no_grad():
+        model.forward_nchw(torch.rand(1, 2, 64, 64))
+    assert set(seen) == {(True, True), ("head", False, True)}
+    assert _tf32() == (True, True)
+
+
+def test_mixed_bundle_serves_bf16_models_in_full_f32(tf32_on):
+    """Beside a float32 model, whose forwards switch cuDNN's TF32 off on
+    the pipelined batch's threads, a bundle's bf16 TpuUnets are served
+    inside full_f32 too; a bundle of one dtype leaves them alone."""
+    from tests.test_torch_classic import REGION_TINY, TEXTLINE_TINY
+
+    seen = []
+    page = _spied_model(TEXTLINE_TINY, torch.bfloat16, seen)
+    runner.ModelBundle(page, page, page)
+    assert not page.without_tf32
+    page.predict_whole_small(_page(0, 100, 90))
+    assert seen == [(True, True)]
+    runner.ModelBundle(page, _spied_model(REGION_TINY, torch.float32, []),
+                       _spied_model(TEXTLINE_TINY, torch.float32, []))
+    assert page.without_tf32
+    seen.clear()
+    page.predict_whole_small(_page(0, 100, 90))
+    assert seen == [(False, False)]
     assert _tf32() == (True, True)
 
 
