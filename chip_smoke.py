@@ -36,7 +36,8 @@ Phases (any failure raises and the script exits non-zero):
      forward's time as served and inside full_f32;
   4. (every serving run below uses DEFAULT_CONFIG with the deskew buffer
      cap lifted to SMOKE_BUF_MAX, see there; flags_phase also serves the
-     reference's cap) a full-width random-weight bundle (bf16 compute,
+     reference's cap) a full-width random-weight bundle (the JAX package's
+     seed-0 initial weights, ModelBundle.random_init; bf16 compute,
      float32 GroupNorm) runs process_batch over 3 synthetic A4 pages (3508x2480,
      skews 0, 8 and -15 degrees): no page may degrade, the Radon kernel
      must have launched, at least one region must carry a nonzero slope,
@@ -117,7 +118,10 @@ Phases (any failure raises and the script exits non-zero):
      BENCH_TRAIN_STEPS and the dual-head model for 6x as many steps on
      the card from nothing, serves BENCH_PAGES hard_mix pages at
      3508x2480 (warm_up, a warm pass, the timed process_batch) and scores
-     them; its JSON line is printed, with the quality gates beside the
+     them; each role's Trainer starts from registry.init_variables(spec,
+     0), the JAX package's seed-0 weights, whose SHA-256 must equal
+     INIT_SHA256 (the CPU's draw: tests/test_torch_training.py); its JSON
+     line is printed, with the quality gates beside the
      JAX package's TPU figures (BENCH_r05.json), the host_sweep count and
      the largest region against the cap. It fails on fewer results than
      pages or results out of order, a degraded page, a fallback other
@@ -232,15 +236,17 @@ CLASSIC_REGION_SHARES = (0.5, 0.7, 0.85, 0.95)
 # and a near-tie may go to the neighbouring angle)
 LADDER_MASK_LIMIT = 1e-3
 SWEEP_SLOPE_LIMIT = 50.0 / 79.0 + 1e-6
-# The deskew buffer cap of the script's serving runs (_serve_config).
-# Random weights mark the whole page crop as one text region (4209 x 2927
-# working pixels on the skew 0 page) beside hundreds of small ones; that
-# is above the reference's cap of 2816 (RuntimeConfig.deskew_buf_max), so
-# under DEFAULT_CONFIG every page goes to the host sweep, as the reference
-# sends it (a trained model's regions are paragraphs). The serving runs
-# lift the cap above the working page, so that their pages run the
-# resident chain; flags_phase serves the pages under the reference's cap
-# and under one below each page's largest region.
+# The deskew buffer cap of the script's serving runs (_serve_config):
+# above the working page (4209 x 2975 pixels), so that every region a
+# random draw makes runs the resident chain. The JAX package's seed-0
+# weights (ModelBundle.random_init) give the three smoke pages 306-608
+# regions, the largest 271 working pixels a side, all under the
+# reference's cap of 2816 (RuntimeConfig.deskew_buf_max); a torch
+# generator's draw of the same distribution made the whole page crop one
+# region (4209 x 2927) beside hundreds of small ones, which the
+# reference's cap sends to the host sweep. flags_phase serves the pages
+# under the reference's cap and under one below each page's largest
+# region.
 SMOKE_BUF_MAX = 8192
 # launches of the Radon kernel on the same inputs that must come out
 # bitwise equal (its cross-block sums are integer atomics)
@@ -322,6 +328,16 @@ BENCH_PACK_MAX = 63 * 2 ** 20
 # speck region while the conv's sum was rounded to bf16 before GroupNorm
 # (ROADMAP Queue 3)
 BENCH_SPECK_PAGE = 6
+# SHA-256 (checkpoint.state_sha256) of the initial state that the bench's
+# Trainer of each role draws for seed 0 (registry.init_variables: the JAX
+# package's seed-0 weights); tests/test_torch_training.py holds the CPU's
+# draw to the same constants
+INIT_SHA256 = {
+    "model_page_mixed_best":
+        "fb30d901e431d597c62c0cc0430a47be47ef120a0ee2e61f0aee5266b5efd606",
+    "model_dualhead":
+        "fa9787c6ae4c028e0046b11e2ca9406ba046c7a359b088e8bddbd3621629c656",
+}
 
 
 def _serve_config(**flags):
@@ -2350,6 +2366,7 @@ def bench_phase(dev, details, details_path=None):
 
     from sbb_textline_detection_tpu_torch import bench
     from sbb_textline_detection_tpu_torch.core.config import DEFAULT_CONFIG
+    from sbb_textline_detection_tpu_torch.models import checkpoint, registry
     from sbb_textline_detection_tpu_torch.models.runner import ModelBundle
     from sbb_textline_detection_tpu_torch.ops import radon
     from sbb_textline_detection_tpu_torch.pipeline.detector import (
@@ -2365,12 +2382,32 @@ def bench_phase(dev, details, details_path=None):
                              "process's")
     ckpt = os.path.join(ROOT, "build", "bench_ckpts")
     shutil.rmtree(ckpt, ignore_errors=True)
+    # each role's initial state, hashed as the Trainer draws it
+    drawn = {}
+    draw = registry.init_variables
+
+    def hashed_draw(spec, seed=0):
+        sd = draw(spec, seed)
+        drawn[spec.name] = {"seed": seed,
+                            "sha256": checkpoint.state_sha256(sd)}
+        return sd
+
+    registry.init_variables = hashed_draw
     t0 = time.time()
-    bench.ensure_bench_checkpoints(ckpt, BENCH_TRAIN_STEPS, device=dev)
+    try:
+        bench.ensure_bench_checkpoints(ckpt, BENCH_TRAIN_STEPS, device=dev)
+    finally:
+        registry.init_variables = draw
     train_s = time.time() - t0
     print(f"bench checkpoints trained in {train_s:.1f} s "
           f"({BENCH_TRAIN_STEPS} page-model steps, "
           f"{6 * BENCH_TRAIN_STEPS} dual-head steps, batch 8)", flush=True)
+    pinned = {name: {"seed": 0, "sha256": h}
+              for name, h in INIT_SHA256.items()}
+    for name, d in drawn.items():
+        same = "equal to" if d == pinned.get(name) else "NOT"
+        print(f"bench initial state {name} (seed {d['seed']}): sha256 "
+              f"{d['sha256']}, {same} the pinned seed-0 draw", flush=True)
     models = ModelBundle.from_dir(ckpt, DEFAULT_CONFIG.runtime, dev,
                                   DEFAULT_CONFIG.model_names)
     det = _cap_spied(TextlineDetector(models, DEFAULT_CONFIG))
@@ -2412,6 +2449,7 @@ def bench_phase(dev, details, details_path=None):
         "warm_up_seconds": served.warm_up_seconds,
         "radon_launches": launches, "fallbacks": dict(det.fallbacks),
         "degraded": det.degraded, "gates": gates,
+        "init_sha256": drawn,
         "resident_dispatches": len(det.cap_calls),
         "over_cap_dispatches": over,
         "largest_region_hw": [largest_h, largest_w],
@@ -2443,6 +2481,9 @@ def bench_phase(dev, details, details_path=None):
           f"{out['quality']['line_recall_vertical']} (TPU r05 "
           f"{BENCH_R05_TPU['line_recall_vertical']})", flush=True)
 
+    if drawn != pinned:
+        raise AssertionError(f"the bench's initial states {drawn} are not "
+                             f"the pinned seed-0 draws {pinned}")
     if names != want:
         raise AssertionError(f"bench results {names}, expected {want}")
     if det.degraded or any(r.degraded for r in results):

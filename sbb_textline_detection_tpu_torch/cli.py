@@ -8,7 +8,8 @@ once, after TextlineDetector.warm_up has run every device path at the
 first page's shape (`[warm-up X.Xs]` goes to stderr); a single page is
 served by TextlineDetector.process_image, as the reference CLI does;
 `--synthetic-models` uses randomly initialized models (the
-page and dual-head TpuUnets); `-m` reads a directory of checkpoints
+page and dual-head TpuUnets with the JAX package's seed-0 initial
+weights, as its CLI's synthetic models); `-m` reads a directory of checkpoints
 through ModelBundle.from_dir: the page and dual-head `.npz` files of the
 JAX package's format, or the upstream three-model layout (page, region
 and textline) as `.npz` files or as the upstream Keras `.h5` files, which

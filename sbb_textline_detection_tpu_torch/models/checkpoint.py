@@ -7,8 +7,9 @@ numpy alone, so either package loads what the other saved;
 `params_from_flax` turns such a tree (the `params` collection and, for the
 ResNet50Unet, `batch_stats`) into a state_dict of models/unet and
 `flax_from_params` is its inverse; `random_init` draws a fresh state_dict
-with Flax's own initialisers. `checkpoint_path` resolves a model name in a
-directory and converts an upstream Keras `.h5` on load (models/convert.py).
+from Flax's initialisers' distributions with a torch generator.
+`checkpoint_path` resolves a model name in a directory and converts an
+upstream Keras `.h5` on load (models/convert.py).
 `pack_dir` / `unpack_dir` carry a directory of checkpoints as one smaller
 file and back, bit for bit.
 
@@ -19,6 +20,7 @@ The two trees name the same modules: Flax's auto-named `Conv_0` /
 
 from __future__ import annotations
 
+import hashlib
 import json
 import logging
 import math
@@ -144,12 +146,27 @@ def flax_from_params(state_dict) -> dict:
     return out
 
 
+def state_sha256(state_dict) -> str:
+    """SHA-256 (hex) of a state_dict's float32 values: each key, its shape
+    and its little-endian float32 bytes, in the dict's order. Equal
+    digests mean bit-equal weights, on any host."""
+    digest = hashlib.sha256()
+    for key, t in state_dict.items():
+        a = t.detach().to("cpu", torch.float32).numpy()
+        digest.update(f"{key}{tuple(a.shape)}".encode("utf-8"))
+        digest.update(np.ascontiguousarray(a, "<f4").tobytes())
+    return digest.hexdigest()
+
+
 def random_init(spec: ModelSpec,
                 generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """Fresh state_dict with Flax's initialisers: lecun-normal kernels
     (fan-in variance scaling, normal truncated at 2 sigma), zero biases,
     unit norm scales, and BatchNorm statistics mean 0 / variance 1. Drawn
-    on the CPU from `generator`, kernels in state_dict order."""
+    on the CPU from `generator`, kernels in state_dict order: Flax's
+    distribution, not its numbers. For tests that want a torch generator's
+    draws; the package's entry points take the JAX package's own initial
+    weights from registry.init_variables."""
     from sbb_textline_detection_tpu_torch.models import registry
 
     sd: Dict[str, torch.Tensor] = {}

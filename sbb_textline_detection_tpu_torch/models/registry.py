@@ -6,6 +6,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -80,3 +81,32 @@ def state_shapes(spec: ModelSpec):
     with torch.device("meta"):
         module = build_module(spec, torch.float32)
     return {k: tuple(v.shape) for k, v in module.state_dict().items()}
+
+
+def init_variables(spec: ModelSpec, seed: int = 0):
+    """The initial state_dict (float32 CPU tensors) that the JAX package's
+    `registry.init_variables(spec, seed)` draws, carried across as
+    `checkpoint.params_from_flax` carries it: lecun-normal conv kernels,
+    each from its Flax scope's key under `jax.random.PRNGKey(seed)`
+    (utils/prng.py), zero biases and BatchNorm means, unit norm scales and
+    BatchNorm variances."""
+    from sbb_textline_detection_tpu_torch.models import checkpoint
+    from sbb_textline_detection_tpu_torch.utils import prng
+
+    root = prng.prng_key(seed)
+    tree = checkpoint.flax_from_params(
+        {k: torch.zeros(s) for k, s in state_shapes(spec).items()})
+
+    def fill(node, path):
+        for name, leaf in node.items():
+            if isinstance(leaf, dict):
+                fill(leaf, path + (name,))
+            elif name == "kernel":   # a Conv scope's first parameter
+                node[name] = prng.lecun_normal(
+                    prng.flax_param_key(root, path, 1), leaf.shape)
+            elif name in ("scale", "var"):
+                node[name] = np.ones_like(leaf)
+
+    for collection in tree.values():
+        fill(collection, ())
+    return checkpoint.params_from_flax(tree)

@@ -896,8 +896,9 @@ class ModelBundle:
                     device="cuda", dtype: torch.dtype | None = None,
                     specs=None, dual_head: bool = False,
                     mesh=None) -> "ModelBundle":
-        """Randomly initialized bundle (tests / smoke runs): each model's
-        weights are drawn from torch.Generator().manual_seed(seed).
+        """Randomly initialized bundle (tests / smoke runs): each model
+        holds the JAX package's initial weights for `seed`
+        (registry.init_variables).
         `specs` maps the roles page / region / textline to specs (default
         registry.DEFAULT_SPECS); with `dual_head`, one DUALHEAD_SPEC model
         serves the region and textline roles."""
@@ -910,8 +911,7 @@ class ModelBundle:
             if spec is None:
                 return None
             spec = _as_spec(spec)
-            return spec, checkpoint.random_init(
-                spec, torch.Generator().manual_seed(seed))
+            return spec, registry.init_variables(spec, seed)
 
         return ModelBundle._from_state(
             pair(specs["page"]), pair(specs["region"]),

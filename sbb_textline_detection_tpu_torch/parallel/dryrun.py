@@ -115,14 +115,14 @@ def _dryrun_worker(world: int) -> dict:
     """One rank of the dry run's training half."""
     import torch.distributed as dist
 
-    from sbb_textline_detection_tpu_torch.models import checkpoint, registry
+    from sbb_textline_detection_tpu_torch.models import registry
     from sbb_textline_detection_tpu_torch.training import train
 
     assert dist.get_world_size() == world, "smaller world than asked"
     spec = registry.ModelSpec(*DRYRUN_SPEC, widths=DRYRUN_WIDTHS)
     mp_size = 2 if world % 2 == 0 else 1
-    state = {k: v.numpy() for k, v in checkpoint.random_init(
-        spec, torch.Generator().manual_seed(0)).items()}
+    state = {k: v.numpy()
+             for k, v in registry.init_variables(spec, 0).items()}
     images, labels = train.synthetic_batch(np.random.default_rng(0),
                                            2 * (world // mp_size), 32, 32, 3)
     out = sharded_step(spec.to_meta(), mp_size, state, images, labels,

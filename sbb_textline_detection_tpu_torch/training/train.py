@@ -119,9 +119,9 @@ def synthetic_batch(rng: np.random.Generator, n: int, h: int, w: int,
 
 
 class Trainer:
-    """A TpuUnet of `spec` on `device`: weights from
-    checkpoint.random_init(spec, torch.Generator().manual_seed(seed)),
-    float32 master weights with bf16 convs, AdamW.
+    """A TpuUnet of `spec` on `device`: the JAX package's initial weights
+    for `seed` (registry.init_variables), float32 master weights with bf16
+    convs, AdamW.
     `device` has no default: training runs where it is told to, or raises.
 
     With a process `mesh`, the model is sharded over its `model` axis,
@@ -135,8 +135,7 @@ class Trainer:
         self.device = torch.device(device)
         self.mesh = mesh
         self.model = registry.build_module(spec, torch.bfloat16)
-        self.model.load_state_dict(checkpoint.random_init(
-            spec, torch.Generator().manual_seed(seed)))
+        self.model.load_state_dict(registry.init_variables(spec, seed))
         self.model.to(self.device).train()
         if mesh is not None:
             mesh_mod.shard_module(self.model, mesh)

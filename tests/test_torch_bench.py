@@ -220,10 +220,16 @@ def _finite_numbers(value, where=""):
 def test_run_gives_every_key_of_jax_bench(monkeypatch):
     """run() on the CPU over 2 small pages: warm_up, the warm pass and the
     timed pass happen in that order; the dict has every key of bench.py's
-    result literal, and its numbers are finite."""
-    bundle = ModelBundle.random_init(
-        CFG.runtime, seed=1, device="cpu", dtype=torch.float32,
-        specs={"page": PAGE_TINY, "region": DUAL_TINY, "textline": None})
+    result literal, and its numbers are finite. The weights are a torch
+    generator's draws (seed 1), on which the head-bias nudge below makes
+    the tiny nets find text on both pages."""
+    def drawn(spec):
+        return spec, checkpoint.flax_from_params(checkpoint.random_init(
+            spec, torch.Generator().manual_seed(1)))
+
+    bundle = ModelBundle.from_jax_variables(
+        drawn(PAGE_TINY), drawn(DUAL_TINY), runtime=CFG.runtime,
+        device="cpu", dtype=torch.float32)
     with torch.no_grad():
         bias = bundle.region.module.head.bias
         bias[1] += 0.3
