@@ -168,13 +168,24 @@ Phases (any failure raises and the script exits non-zero):
      off, batch 8, cuDNN's deterministic algorithms) in a world-size-1
      NCCL group on a (1, 1) mesh must equal the plain step to
      MESH_TRAIN_RTOL; with two or more cards, `parallel.dryrun --devices 2
-     --backend nccl` runs too.
+     --backend nccl` runs too;
+ 11. the A/B harness (ab_phase, sbb_textline_detection_tpu_torch/ab.py) on
+     the bench checkpoints of phase 7a and its 8 hard_mix pages: the spec
+     study's and the paths study's output checks (slopes must be
+     bit-equal between spec_deskew on and off; per page and arm, slopes
+     and PAGE-XML equal or not and the share of region-mask pixels that
+     moved are printed), then one paired round of the workers study with
+     only the serial arm (process_image in turn) and the default arm
+     (process_batch under DEFAULT_CONFIG); no arm may degrade a page or
+     fall back, every PAGE-XML must parse, and the phase's seconds are
+     printed.
 The line before the last is {"kernels": [...]}; the last line is {"ok": true,
 "device": {...}}. The kernel line's launches add up phases 4, 4a (its
 children's too), 5, 6 (the flags), 7 (a)-(d), 7a (warm_up and both passes), 8
-(c), 9 and 10. With --only batch, phases 4 (classic bundle), 4a, 5, 7a, 8, 9
-and 10 are left out (a shorter run while working on the batch); with --only
-bench, phase 3's kernel check and 7a alone run (the default runs everything).
+(c), 9, 10 and 11. With --only batch, phases 4 (classic bundle), 4a, 5, 7a, 8,
+9, 10 and 11 are left out (a shorter run while working on the batch); with
+--only bench, phase 3's kernel check, 7a and 11 alone run (the default runs
+everything).
 With --details PATH, the run's details (ptxas report, per-page stage
 timings, kernel times) are written there as JSON. After the timed pages, the
 second page runs once more under torch.profiler for its device time by op and
@@ -2552,6 +2563,52 @@ def serve_trained_phase(dev, details, ckpt, random_regions):
     return launches
 
 
+def ab_phase(dev, details, ckpt):
+    """(11) The A/B harness (sbb_textline_detection_tpu_torch/ab.py) on the
+    bench checkpoints and the BENCH_PAGES hard_mix pages: the spec and the
+    paths study's output checks (each arm warmed and served once, no timed
+    round), then one round of the workers study with its serial and its
+    default arm. It fails when the spec study's slopes are not bit-equal
+    (ab.SlopesDiffer), an arm degrades a page or falls back, or a PAGE-XML
+    does not parse. Returns the Radon launches of its servings."""
+    from sbb_textline_detection_tpu_torch import ab, bench
+    from sbb_textline_detection_tpu_torch.ops import radon
+
+    t0 = time.time()
+    models = ab.load_bundle(ckpt, BENCH_TRAIN_STEPS, dev)
+    pages, layouts = bench.bench_pages(BENCH_PAGES, *WARM_HW)
+    radon.launches = 0
+    records = [ab.run_study(ab.STUDIES[name], models, pages, layouts,
+                            rounds, arms, device=dev)
+               for name, rounds, arms in (("spec", 0, None),
+                                          ("paths", 0, None),
+                                          ("workers", 1, ("serial", "w2")))]
+    launches = radon.launches
+    seconds = time.time() - t0
+    details["ab"] = {"seconds": seconds, "radon_launches": launches,
+                     "records": records}
+    for rec in records:
+        for arm, rows in rec["checks"].items():
+            moved = [r["mask_moved"] for r in rows]
+            print(f"ab {rec['study']} {arm} vs {rec['default']} on "
+                  f"{len(rows)} hard_mix pages: slopes equal on "
+                  f"{sum(r['slopes_equal'] for r in rows)}, PAGE-XML equal "
+                  f"on {sum(r['xml_equal'] for r in rows)}, region mask "
+                  f"moved at most {max(moved):.6f}", flush=True)
+    work = records[-1]
+    print("ab workers, one round: " + ", ".join(
+        f"{n} {work['rounds'][0]['min_seconds'][n]:.3f} s "
+        f"({work['pages_per_s'][n]:.3f} pages/s, p50 {work['p50_ms'][n]:.1f}"
+        " ms)" for n in work["arms"]) + f"; ab phase {seconds:.1f} s, "
+        f"{launches} radon launches", flush=True)
+    bad = [f"{r['study']}: {b}" for r in records for b in ab.clean(r)]
+    if bad:
+        raise AssertionError("the A/B phase: " + "; ".join(bad))
+    if launches < 1:
+        raise AssertionError("the A/B phase launched no Radon kernel")
+    return launches
+
+
 def _within(points, parent, tol=1.0):
     """Every vertex of `points` inside the convex hull of `parent` (the
     window the merge clips to) or within `tol` pixels of its edges (the
@@ -3124,7 +3181,8 @@ def main() -> int:
     parser.add_argument("--only", choices=["batch", "bench"],
                         help="a shorter run: `batch` leaves out the fallback "
                         "ladder, the classic bundle, the bench and training; "
-                        "`bench` runs the kernel phase and the bench only")
+                        "`bench` runs the kernel phase, the bench and the A/B "
+                        "phase only")
     parser.add_argument("--warm-child", choices=["warm", "cold"],
                         help="run as one of warm_phase's child processes "
                         "and print its result as the last line")
@@ -3183,7 +3241,8 @@ def _phases(args, dev, details, torch) -> int:
     """Every phase after the builds, then the two result lines."""
     kernel = kernel_phase(dev, details)
     if args.only == "bench":
-        launches, _ = bench_phase(dev, details, args.details)
+        launches, ckpt = bench_phase(dev, details, args.details)
+        launches += ab_phase(dev, details, ckpt)
     else:
         launches = _serving_phases(args, dev, details)
     print(json.dumps({"kernels": [{
@@ -3225,6 +3284,7 @@ def _serving_phases(args, dev, details) -> int:
         train_parity_phase(dev, details)
         train_phase(dev, details)
         launches += serve_trained_phase(dev, details, ckpt, random_regions)
+        launches += ab_phase(dev, details, ckpt)
     return launches
 
 
