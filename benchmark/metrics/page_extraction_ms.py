@@ -1,0 +1,7 @@
+"""Mean timings["page_extraction"] of a page (ms)."""
+
+from benchmark import readings
+
+
+def read(ctx):
+    return readings.mean_ms(ctx, "page_extraction")
