@@ -16,9 +16,11 @@ and textline) as `.npz` files or as the upstream Keras `.h5` files, which
 are converted on first load (needs h5py; see models/convert.py).
 `--device` (default `cuda`) picks the device; without a CUDA card the
 command stops unless `--device cpu` is given. `--timings` prints each
-page's stage breakdown (seconds per stage, of which on the device, and the
-page's FLOPs); `--profile DIR` wraps the run in a torch.profiler trace
-(utils/profiling.trace) and writes it into DIR.
+page's stage breakdown (seconds per stage, of which on the device, the
+page's FLOPs, the segmentation's tiles, and the count and bytes of the
+copies from the card that the host waited for); `--profile DIR` wraps the
+run in a torch.profiler trace (utils/profiling.trace) and writes it into
+DIR, with the pages' spans on tracks of their own.
 """
 
 from __future__ import annotations
@@ -96,7 +98,7 @@ def main(image, out, model, synthetic_models, profile, timings, device):
                        if f.lower().endswith(exts))
     else:
         paths = [image]
-    with profiling.trace(profile):
+    with profiling.trace(profile) as trace:
         if len(paths) > 1:
             # the first pages of a batch should not pay the cold start:
             # warm every device path at the first page's shape
@@ -114,6 +116,7 @@ def main(image, out, model, synthetic_models, profile, timings, device):
             results = (detector.process_image(load_image(p), p)
                        for p in paths)
         for path, res in zip(paths, results):
+            trace.extend(res.spans)
             f_name = os.path.splitext(os.path.basename(path))[0]
             xml_path = res.write(out, f_name)
             click.echo(f"{path} -> {xml_path}  ({time.time() - t0:.2f}s "
@@ -124,6 +127,13 @@ def main(image, out, model, synthetic_models, profile, timings, device):
                 click.echo("  device: " + " ".join(
                     f"{k}={v:.3f}s" for k, v in res.device_timings.items())
                     + f" flops={res.flops:.4g}")
+                fetches = [sp for sp in res.spans if sp.name == "fetch"]
+                tiles = sum((sp.attrs or {}).get("tiles", 0)
+                            for sp in res.spans
+                            if sp.name == "region_extraction.model")
+                click.echo(f"  tiles={tiles} fetches={len(fetches)} "
+                           "fetch_bytes="
+                           f"{sum(sp.attrs['bytes'] for sp in fetches)}")
 
 if __name__ == "__main__":
     main()

@@ -64,7 +64,7 @@ from sbb_textline_detection_tpu_torch.ops import cc as cc_ops
 from sbb_textline_detection_tpu_torch.ops import morphology, precision
 from sbb_textline_detection_tpu_torch.ops import resize as resize_ops
 from sbb_textline_detection_tpu_torch.ops import threshold
-from sbb_textline_detection_tpu_torch.utils import stagetime
+from sbb_textline_detection_tpu_torch.utils import profiling, stagetime
 
 # tuple of ("erode"|"dilate"|"open"|"close", kernel_size, iterations)
 MorphSpec = Tuple[Tuple[str, int, int], ...]
@@ -136,9 +136,12 @@ class DeferredFusedRaw:
     def fetch(self):
         """(region_mask, row_projection, textline canvas on the device):
         the tuple the non-deferred call returns."""
-        if self._event is not None:
-            self._event.synchronize()
-        region, rowsum = (t.numpy() for t in self._host)
+        with profiling.span("fetch",
+                            bytes=sum(t.numel() * t.element_size()
+                                      for t in self._host)):
+            if self._event is not None:
+                self._event.synchronize()
+            region, rowsum = (t.numpy() for t in self._host)
         return region, rowsum, self.textline_dev
 
 
@@ -303,7 +306,7 @@ class SegmentationModel:
                              f"{smalls.shape}")
         x = self._to_device(smalls).to(torch.float32) / 255.0
         logits = self._logits(x.permute(0, 3, 1, 2))
-        return torch.argmax(logits, dim=1).to(torch.uint8).cpu().numpy()
+        return profiling.fetch(torch.argmax(logits, dim=1).to(torch.uint8))
 
     def predict_whole_small(self, img_u8: np.ndarray) -> np.ndarray:
         """Whole-image forward without the final upscale: nearest-resize
@@ -506,6 +509,7 @@ class SegmentationModel:
             cols = torch.from_numpy(x0[:, None] + np.arange(mw)).to(dev)
             tiles.append(img[rows[:, :, None], cols[:, None, :]])
         tiles = torch.cat(tiles)                   # (k*n, mh, mw[, 3])
+        profiling.note("tiles", k * n)
         t_tiles = torch.stack(ts).repeat_interleave(n)
 
         d = len(self.members)
@@ -584,7 +588,7 @@ class SegmentationModel:
         h, w = img_u8.shape[:2]
         out = self._shape_labels(labels[0], h, w, morph, mask_class,
                                  post_morph)
-        return out[:h, :w].cpu().numpy()
+        return profiling.fetch(out[:h, :w])
 
     def _dual_tiled_device(self, other: "SegmentationModel", canvases,
                            boxes, margin_ratio, morph, mask_class,
@@ -631,14 +635,14 @@ class SegmentationModel:
         out = []
         for (region, tl), (_, _, bh, bw) in zip(pages, boxes):
             bh, bw = int(bh), int(bw)
-            region = region[:bh, :bw].cpu().numpy()
+            region = profiling.fetch(region[:bh, :bw])
             if textline_projection:
                 rowsum = tl[:bh, :bw].sum(1, dtype=torch.int32)
-                out.append((region, rowsum.cpu().numpy(), tl))
+                out.append((region, profiling.fetch(rowsum), tl))
             elif return_device_textline:
-                out.append((region, tl[:bh, :bw].cpu().numpy(), tl))
+                out.append((region, profiling.fetch(tl[:bh, :bw]), tl))
             else:
-                out.append((region, tl[:bh, :bw].cpu().numpy()))
+                out.append((region, profiling.fetch(tl[:bh, :bw])))
         return out
 
     @_device_entry
@@ -790,7 +794,7 @@ class SegmentationModel:
             raise ValueError("the fetch-free forms need mask_class")
         if tuple(box5.shape) != (1, 5):
             raise ValueError(f"box5 must be (1, 5), got {tuple(box5.shape)}")
-        b = box5.cpu().numpy().reshape(5).astype(np.int32)
+        b = profiling.fetch(box5).reshape(5).astype(np.int32)
         if raw_hw is None:
             raw_hw = tuple(raw.shape[:2])
         canvases, valid = self._raw_canvases([raw], scaled_hw, raw_hw,

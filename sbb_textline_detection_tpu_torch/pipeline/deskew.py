@@ -60,7 +60,7 @@ from sbb_textline_detection_tpu_torch.core.config import DeskewConfig
 from sbb_textline_detection_tpu_torch.ops import cc as cc_ops
 from sbb_textline_detection_tpu_torch.ops import (morphology, precision,
                                                  profiles, radon)
-from sbb_textline_detection_tpu_torch.utils import stagetime
+from sbb_textline_detection_tpu_torch.utils import profiling, stagetime
 
 _BUCKETS = (256, 512, 1024, 1536, 2048)
 
@@ -413,7 +413,7 @@ class DeskewEngine:
         guard, DEVIATIONS #15)."""
         a = angles.shape[0]
         with stagetime.device_section(vs_dev.device):
-            vs = vs_dev.cpu().numpy()
+            vs = profiling.fetch(vs_dev)
         valid = vs[0].reshape(r, a) != 0.0
         score = vs[1].reshape(r, a)
         out = []
@@ -590,7 +590,7 @@ class DeskewEngine:
         profiles_out = []
         for out_dev, group, bufH in pending:
             with stagetime.device_section(out_dev.device):
-                out = out_dev.cpu().numpy()
+                out = profiling.fetch(out_dev)
             for i, (x, y, w, h) in enumerate(group):
                 slopes.append(float(out[i, 0]))
                 profiles_out.append((out[i, 1:1 + h],
@@ -676,7 +676,7 @@ class DeskewEngine:
         if s_host != pending.s:
             return self.resident_dispatch(pending.mask_dev, boxes_xywh)
         with stagetime.device_section(pending.out_dev.device):
-            out = pending.out_dev.cpu().numpy()
+            out = profiling.fetch(pending.out_dev)
         dev_boxes = out[:, :5].astype(np.int64)
         mapping = [-1] * n
         used = set()

@@ -61,6 +61,17 @@ degraded in its place, and both counters are guarded by a lock.
 
 Every stage also reports its time on the device and its FLOPs
 (utils/stagetime): `PageResult.device_timings` and `PageResult.flops`.
+Its spans (utils/profiling) go with the page, `_DeviceState.spans` and
+then `PageResult.spans`: `process_image` (the root of a single page);
+in the batch `batch.pull` (the page taken from the caller's iterator),
+`prefetch.window` (the batched page-box forward, shared by the window's
+pages), `batch.device_phase` (on its worker thread), `batch.wait_device`
+(the consumer blocked on the page's device phase); `host.dispatch` and
+`host.phase`; inside them the stages `page_extraction`,
+`region_extraction.model` (attribute `tiles`), `host.contours`,
+`deskew`, `line_split`, `reading_order` and `pagexml.build`, and a
+`fetch` (attribute `bytes`) around each copy from the card that the host
+waits for. The stage keys of `timings` are read from the spans' stamps.
 """
 
 from __future__ import annotations
@@ -88,7 +99,7 @@ from sbb_textline_detection_tpu_torch.models.runner import ModelBundle
 from sbb_textline_detection_tpu_torch.pipeline import order as order_mod
 from sbb_textline_detection_tpu_torch.pipeline import stages
 from sbb_textline_detection_tpu_torch.pipeline.deskew import DeskewEngine
-from sbb_textline_detection_tpu_torch.utils import stagetime
+from sbb_textline_detection_tpu_torch.utils import profiling, stagetime
 
 LOG = logging.getLogger("sbb_textline_detection_tpu_torch.detector")
 
@@ -109,6 +120,8 @@ class PageResult:
     flops: float = 0.0
     # True when a failure cost this page its regions
     degraded: bool = False
+    # the page's spans (utils/profiling), in the order they were opened
+    spans: List[profiling.Span] = dataclasses.field(default_factory=list)
 
     def write(self, dir_out: str, f_name: str) -> str:
         return pagexml_writer.write_page_xml(self.xml_tree, dir_out, f_name)
@@ -140,6 +153,9 @@ class _DeviceState:
     # the speculative deskew enqueued behind the fused call
     # (runtime.spec_deskew), resolved against the host contour boxes
     spec: Optional[object] = None
+    # the page's spans so far; host_phase_dispatch and host_phase add
+    # theirs
+    spans: List[profiling.Span] = dataclasses.field(default_factory=list)
 
     def textline_mask_or_fetch(self) -> Optional[np.ndarray]:
         """The host textline mask, fetched from the device canvas when
@@ -149,7 +165,7 @@ class _DeviceState:
         if self.textline_dev is None:
             return None
         h, w = self.crop_hw
-        return self.textline_dev[:h, :w].cpu().numpy()
+        return profiling.fetch(self.textline_dev[:h, :w])
 
 
 def _channels_identical(image: np.ndarray) -> bool:
@@ -300,40 +316,41 @@ class TextlineDetector:
         t: Dict[str, float] = {}
         dev: Dict[str, float] = {}
         stagetime.reset()
-        t0 = time.time()
-        th, tw = stages.working_dims(image, cfg)
-        scaled = stages.LazyScaledImage(image, th, tw)
-        # the page model reads RGB: one plane only for a gray page when it
-        # forms the page model's input on the device
-        plane = _channels_identical(image) or (
-            self.models.is_dual_head and not fused)
-        raw_dev = self.models.region.upload_raw(
-            image[:, :, 0] if plane and image.ndim == 3 else image)
-        if not fused:
-            mh, mw = self.models.page.input_hw
-            box5_dev = self.models.page.page_box_dev(
-                stages.page_model_input_from_raw(image, th, tw, mh, mw),
-                th, tw)
-        t["page_extraction"] = time.time() - t0
+        with profiling.span("page_extraction") as sp:
+            th, tw = stages.working_dims(image, cfg)
+            scaled = stages.LazyScaledImage(image, th, tw)
+            # the page model reads RGB: one plane only for a gray page
+            # when it forms the page model's input on the device
+            plane = _channels_identical(image) or (
+                self.models.is_dual_head and not fused)
+            raw_dev = self.models.region.upload_raw(
+                image[:, :, 0] if plane and image.ndim == 3 else image)
+            if not fused:
+                mh, mw = self.models.page.input_hw
+                box5_dev = self.models.page.page_box_dev(
+                    stages.page_model_input_from_raw(image, th, tw, mh, mw),
+                    th, tw)
+        t["page_extraction"] = sp.seconds
         dev["page_extraction"], flops = stagetime.snapshot()
 
         stagetime.reset()
-        t1 = time.time()
-        if fused:
-            res = stages.extract_regions_and_textline_resident_raw_fullfused(
-                raw_dev, (th, tw), self.models, cfg, raw_hw=image.shape[:2])
-        else:
-            res = stages.extract_regions_and_textline_resident_raw_headless(
-                raw_dev, box5_dev, (th, tw), self.models, cfg,
-                raw_hw=image.shape[:2])
-        if res is None:
-            raise RuntimeError("bundle cannot run the fetch-free path")
-        region_mask, textline_proj, textline_dev, box5 = res
-        page_coord, cont_page, crop_hw = _box5_page_coords(box5,
-                                                           image_filename)
-        if not box5[4]:
-            self._fell_back("whole_page_box")
-        t["region_extraction_model"] = time.time() - t1
+        with profiling.span("region_extraction.model") as sp:
+            if fused:
+                fn = stages.extract_regions_and_textline_resident_raw_fullfused
+                res = fn(raw_dev, (th, tw), self.models, cfg,
+                         raw_hw=image.shape[:2])
+            else:
+                fn = stages.extract_regions_and_textline_resident_raw_headless
+                res = fn(raw_dev, box5_dev, (th, tw), self.models, cfg,
+                         raw_hw=image.shape[:2])
+            if res is None:
+                raise RuntimeError("bundle cannot run the fetch-free path")
+            region_mask, textline_proj, textline_dev, box5 = res
+            page_coord, cont_page, crop_hw = _box5_page_coords(
+                box5, image_filename)
+            if not box5[4]:
+                self._fell_back("whole_page_box")
+        t["region_extraction_model"] = sp.seconds
         dev["region_extraction"], f = stagetime.snapshot()
         t["textlines"] = dev["textlines"] = 0.0
         return _DeviceState(image_filename, scaled, crop_hw, page_coord,
@@ -350,55 +367,57 @@ class TextlineDetector:
         t: Dict[str, float] = {}
         dev: Dict[str, float] = {}
         stagetime.reset()
-        t0 = time.time()
-        th, tw = stages.working_dims(image, cfg)
-        scaled = stages.LazyScaledImage(image, th, tw)
-        plane = self.models.is_dual_head or _channels_identical(image)
-        raw_dev = self.models.region.upload_raw(
-            image[:, :, 0] if plane and image.ndim == 3 else image)
-        t_share = d_share = f_share = 0.0
-        if pre_box is not None:
-            box, t_share, d_share, f_share = pre_box
-        else:
-            mh, mw = self.models.page.input_hw
-            small = stages.page_model_input_from_raw(image, th, tw, mh, mw)
-            box = stages._page_box_or_whole(
-                lambda: self.models.page.predict_small_prescaled(small),
-                th, tw, cfg, self._fell_back, image_filename)
-        page_coord = [box[1], box[1] + box[3], box[0], box[0] + box[2]]
-        t["page_extraction"] = time.time() - t0 + t_share
+        with profiling.span("page_extraction") as sp:
+            th, tw = stages.working_dims(image, cfg)
+            scaled = stages.LazyScaledImage(image, th, tw)
+            plane = self.models.is_dual_head or _channels_identical(image)
+            raw_dev = self.models.region.upload_raw(
+                image[:, :, 0] if plane and image.ndim == 3 else image)
+            t_share = d_share = f_share = 0.0
+            if pre_box is not None:
+                box, t_share, d_share, f_share = pre_box
+            else:
+                mh, mw = self.models.page.input_hw
+                small = stages.page_model_input_from_raw(image, th, tw, mh,
+                                                         mw)
+                box = stages._page_box_or_whole(
+                    lambda: self.models.page.predict_small_prescaled(small),
+                    th, tw, cfg, self._fell_back, image_filename)
+            page_coord = [box[1], box[1] + box[3], box[0], box[0] + box[2]]
+        t["page_extraction"] = sp.seconds + t_share
         d, flops = stagetime.snapshot()
         dev["page_extraction"] = d + d_share
         flops += f_share
 
         stagetime.reset()
-        t1 = time.time()
-        keep_dev, tp = self._fused_modes()
-        pbox = [page_coord[0], page_coord[2], box[3], box[2]]
-        spec = res = None
-        if tp and cfg.runtime.spec_deskew:
-            # the speculative deskew: the fused call's outputs stay on the
-            # device, the region crop starts its copy to the host, the
-            # chain is enqueued from device boxes, and only then does the
-            # host wait for the crop (deskew.py:958-977 of the JAX package)
-            handle = stages.extract_regions_and_textline_resident_raw(
-                [raw_dev], [pbox], [(th, tw)], self.models, cfg,
-                return_device_textline=True, textline_projection=True,
-                raw_hws=[image.shape[:2]], defer_fetch=True)
-            if handle is not None:
-                spec = stages.deskew_spec_dispatch(
-                    self.deskew, handle, (box[3], box[2]), cfg)
-                res = [handle.fetch()]
-        if res is None:
-            res = stages.extract_regions_and_textline_resident_raw(
-                [raw_dev], [pbox], [(th, tw)], self.models, cfg,
-                return_device_textline=keep_dev, textline_projection=tp,
-                raw_hws=[image.shape[:2]])
-        if not res:
-            raise RuntimeError("bundle cannot run the raw-resident path")
-        region_mask, textline_mask, textline_dev, textline_proj = \
-            _split_fused(res[0])
-        t["region_extraction_model"] = time.time() - t1
+        with profiling.span("region_extraction.model") as sp:
+            keep_dev, tp = self._fused_modes()
+            pbox = [page_coord[0], page_coord[2], box[3], box[2]]
+            spec = res = None
+            if tp and cfg.runtime.spec_deskew:
+                # the speculative deskew: the fused call's outputs stay on
+                # the device, the region crop starts its copy to the host,
+                # the chain is enqueued from device boxes, and only then
+                # does the host wait for the crop (deskew.py:958-977 of the
+                # JAX package)
+                handle = stages.extract_regions_and_textline_resident_raw(
+                    [raw_dev], [pbox], [(th, tw)], self.models, cfg,
+                    return_device_textline=True, textline_projection=True,
+                    raw_hws=[image.shape[:2]], defer_fetch=True)
+                if handle is not None:
+                    spec = stages.deskew_spec_dispatch(
+                        self.deskew, handle, (box[3], box[2]), cfg)
+                    res = [handle.fetch()]
+            if res is None:
+                res = stages.extract_regions_and_textline_resident_raw(
+                    [raw_dev], [pbox], [(th, tw)], self.models, cfg,
+                    return_device_textline=keep_dev, textline_projection=tp,
+                    raw_hws=[image.shape[:2]])
+            if not res:
+                raise RuntimeError("bundle cannot run the raw-resident path")
+            region_mask, textline_mask, textline_dev, textline_proj = \
+                _split_fused(res[0])
+        t["region_extraction_model"] = sp.seconds
         dev["region_extraction"], f = stagetime.snapshot()
         t["textlines"] = dev["textlines"] = 0.0
         return _DeviceState(image_filename, scaled, (box[3], box[2]),
@@ -417,81 +436,81 @@ class TextlineDetector:
         t: Dict[str, float] = {}
         dev: Dict[str, float] = {}
         stagetime.reset()
-        t0 = time.time()
-        scaled = stages.scale_image(image, cfg)
-        canvas = None
-        if cfg.runtime.resident_upload:
-            try:
-                canvas = self.models.region.upload_canvas(
-                    scaled.image, cfg.tiling.margin_ratio)
-            except Exception:
-                LOG.warning("canvas upload failed for %s; using the "
-                            "upload-per-dispatch path", image_filename,
-                            exc_info=True)
-                self._fell_back("crop_upload")
-        image_page, page_coord, cont_page = stages.extract_page(
-            scaled, self.models, cfg, on_fallback=self._fell_back)
-        t["page_extraction"] = time.time() - t0
+        with profiling.span("page_extraction") as sp:
+            scaled = stages.scale_image(image, cfg)
+            canvas = None
+            if cfg.runtime.resident_upload:
+                try:
+                    canvas = self.models.region.upload_canvas(
+                        scaled.image, cfg.tiling.margin_ratio)
+                except Exception:
+                    LOG.warning("canvas upload failed for %s; using the "
+                                "upload-per-dispatch path", image_filename,
+                                exc_info=True)
+                    self._fell_back("crop_upload")
+            image_page, page_coord, cont_page = stages.extract_page(
+                scaled, self.models, cfg, on_fallback=self._fell_back)
+        t["page_extraction"] = sp.seconds
         dev["page_extraction"], flops = stagetime.snapshot()
 
         region_mask = textline_mask = textline_dev = textline_proj = None
         failed = False
         keep_dev, tp = self._fused_modes()
         stagetime.reset()
-        t1 = time.time()
-        fused = None
-        try:
-            if canvas is not None:
-                box = [page_coord[0], page_coord[2],
-                       image_page.shape[0], image_page.shape[1]]
-                res = stages.extract_regions_and_textline_resident(
-                    [canvas], [box], self.models, cfg,
-                    return_device_textline=keep_dev, textline_projection=tp)
-                fused = res[0] if res else None
-            if fused is None:
-                fused = stages.extract_regions_and_textline(
-                    image_page, self.models, cfg,
-                    return_device_textline=keep_dev, textline_projection=tp)
-        except Exception:
-            LOG.warning("fused segmentation failed for %s; retrying the "
-                        "separate per-model path", image_filename,
-                        exc_info=True)
-            self._fell_back("separate_models")
+        with profiling.span("region_extraction.model") as sp:
             fused = None
-        if fused is not None:
-            # one call covered both stages: its cost goes to
-            # region_extraction, so that the stage keys stay comparable
-            region_mask, textline_mask, textline_dev, textline_proj = \
-                _split_fused(fused)
-            t["region_extraction_model"] = time.time() - t1
-            dev["region_extraction"], f = stagetime.snapshot()
-            flops += f
-            t["textlines"] = dev["textlines"] = 0.0
-        else:
             try:
-                region_mask = stages.extract_text_regions(
-                    image_page, self.models, cfg)
+                if canvas is not None:
+                    box = [page_coord[0], page_coord[2],
+                           image_page.shape[0], image_page.shape[1]]
+                    res = stages.extract_regions_and_textline_resident(
+                        [canvas], [box], self.models, cfg,
+                        return_device_textline=keep_dev,
+                        textline_projection=tp)
+                    fused = res[0] if res else None
+                if fused is None:
+                    fused = stages.extract_regions_and_textline(
+                        image_page, self.models, cfg,
+                        return_device_textline=keep_dev,
+                        textline_projection=tp)
             except Exception:
-                LOG.warning("region model failed for %s; degrading to empty "
-                            "regions", image_filename, exc_info=True)
-                failed = True
-            t["region_extraction_model"] = time.time() - t1
-            dev["region_extraction"], f = stagetime.snapshot()
-            flops += f
-            if region_mask is not None:
-                stagetime.reset()
-                t2 = time.time()
+                LOG.warning("fused segmentation failed for %s; retrying the "
+                            "separate per-model path", image_filename,
+                            exc_info=True)
+                self._fell_back("separate_models")
+                fused = None
+            if fused is not None:
+                # one call covered both stages: its cost goes to
+                # region_extraction, so that the stage keys stay comparable
+                region_mask, textline_mask, textline_dev, textline_proj = \
+                    _split_fused(fused)
+            else:
                 try:
-                    textline_mask = stages.textline_mask_total(
+                    region_mask = stages.extract_text_regions(
                         image_page, self.models, cfg)
                 except Exception:
-                    LOG.warning("textline model failed for %s; degrading to "
+                    LOG.warning("region model failed for %s; degrading to "
                                 "empty regions", image_filename,
                                 exc_info=True)
                     failed = True
-                t["textlines"] = time.time() - t2
-                dev["textlines"], f = stagetime.snapshot()
-                flops += f
+        t["region_extraction_model"] = sp.seconds
+        dev["region_extraction"], f = stagetime.snapshot()
+        flops += f
+        if fused is not None:
+            t["textlines"] = dev["textlines"] = 0.0
+        elif region_mask is not None:
+            stagetime.reset()
+            t2 = time.time()
+            try:
+                textline_mask = stages.textline_mask_total(
+                    image_page, self.models, cfg)
+            except Exception:
+                LOG.warning("textline model failed for %s; degrading to "
+                            "empty regions", image_filename, exc_info=True)
+                failed = True
+            t["textlines"] = time.time() - t2
+            dev["textlines"], f = stagetime.snapshot()
+            flops += f
         return _DeviceState(image_filename, scaled, image_page.shape[:2],
                             page_coord, cont_page, region_mask,
                             textline_mask, t, dev, flops, textline_dev,
@@ -508,46 +527,71 @@ class TextlineDetector:
         fails is served page by page (device_phase), counted in
         `fallbacks` as "per_page_dispatch".
 
-        Items are (image, name) or (image, name, pre_box) from the batched
-        page-box stage; pre_box is consumed only by the per-page path (a
-        group runs its own batched page extraction). One state per item,
-        in order; None for a page whose device phase failed before any
-        page box existed."""
-        items = [tuple(it) + (None,) * (3 - len(it)) for it in items]
+        Items are (image, name), (image, name, pre_box) from the batched
+        page-box stage, or (image, name, pre_box, spans) with the page's
+        span list so far (pre_box may be None); pre_box is consumed only
+        by the per-page path (a group runs its own batched page
+        extraction). One state per item, in order; None for a page whose
+        device phase failed before any page box existed. The device phase
+        is a `batch.device_phase` span in each page's list (a group's is
+        shared by its pages and carries their ids)."""
+        items = [tuple(it) + (None,) * (4 - len(it)) for it in items]
+        items = [(img, name, pb, [] if spans is None else spans)
+                 for img, name, pb, spans in items]
         if len(items) <= 1:
-            return [self._device_phase_or_none(img, name, pb)
-                    for img, name, pb in items]
-        items = [(img, name) for img, name, _ in items]
-        try:
-            return self._device_phase_grouped(items)
-        except Exception:
-            LOG.warning("grouped device phase failed for %s; falling back "
-                        "to per-page device phases",
-                        [name for _, name in items], exc_info=True)
-            self._fell_back("per_page_dispatch")
-            return [self._device_phase_or_none(img, name)
-                    for img, name in items]
+            return [self._device_phase_traced(*it) for it in items]
+        names = [name for _, name, _, _ in items]
+        shared: List[profiling.Span] = []
+        with profiling.record_into(shared, ""), \
+                profiling.span("batch.device_phase", pages=names):
+            try:
+                states = self._device_phase_grouped(
+                    [(img, name) for img, name, _, _ in items])
+            except Exception:
+                LOG.warning("grouped device phase failed for %s; falling "
+                            "back to per-page device phases", names,
+                            exc_info=True)
+                self._fell_back("per_page_dispatch")
+                states = [self._device_phase_or_none(img, name)
+                          for img, name, _, _ in items]
+        for (_, name, _, spans), st in zip(items, states):
+            profiling.adopt(spans, shared, name)
+            if st is not None:
+                st.spans = spans
+        return states
+
+    def _device_phase_traced(self, image: np.ndarray, image_filename: str,
+                             pre_box, spans: List[profiling.Span]
+                             ) -> Optional[_DeviceState]:
+        """_device_phase_or_none in a `batch.device_phase` span of the
+        page's list `spans`, which the state then carries."""
+        with profiling.record_into(spans, image_filename), \
+                profiling.span("batch.device_phase"):
+            st = self._device_phase_or_none(image, image_filename, pre_box)
+        if st is not None:
+            st.spans = spans
+        return st
 
     def _device_phase_grouped(self, items) -> List[Optional[_DeviceState]]:
         cfg = self.config
         region = self.models.region
         n = len(items)
         stagetime.reset()
-        t0 = time.time()
-        scaleds = [stages.scale_image(img, cfg) for img, _ in items]
-        canvases: Optional[List] = None
-        if cfg.runtime.resident_upload:
-            try:
-                canvases = [region.upload_canvas(s.image,
-                                                 cfg.tiling.margin_ratio)
-                            for s in scaleds]
-            except Exception:
-                LOG.warning("canvas upload failed; using the upload-per-"
-                            "dispatch path", exc_info=True)
-                self._fell_back("crop_upload")
-        page_crops = stages.extract_page_batch(scaleds, self.models, cfg,
-                                               on_fallback=self._fell_back)
-        t_page = (time.time() - t0) / n
+        with profiling.span("page_extraction") as sp:
+            scaleds = [stages.scale_image(img, cfg) for img, _ in items]
+            canvases: Optional[List] = None
+            if cfg.runtime.resident_upload:
+                try:
+                    canvases = [region.upload_canvas(s.image,
+                                                     cfg.tiling.margin_ratio)
+                                for s in scaleds]
+                except Exception:
+                    LOG.warning("canvas upload failed; using the upload-"
+                                "per-dispatch path", exc_info=True)
+                    self._fell_back("crop_upload")
+            page_crops = stages.extract_page_batch(
+                scaleds, self.models, cfg, on_fallback=self._fell_back)
+        t_page = sp.seconds / n
         d_page, f_page = (v / n for v in stagetime.snapshot())
 
         # Pages fuse only with pages on the SAME tile grid: a smaller page
@@ -566,34 +610,36 @@ class TextlineDetector:
         keep_dev, tp = self._fused_modes()
         for idxs in subgroups.values():
             stagetime.reset()
-            t1 = time.time()
-            fused = None
-            try:
-                if canvases is not None:
-                    # page_coord = [y0, y1, x0, x1] in working coordinates
-                    boxes = [[page_crops[i][1][0], page_crops[i][1][2],
-                              page_crops[i][0].shape[0],
-                              page_crops[i][0].shape[1]] for i in idxs]
-                    fused = stages.extract_regions_and_textline_resident(
-                        [canvases[i] for i in idxs], boxes, self.models,
-                        cfg, return_device_textline=keep_dev,
-                        textline_projection=tp)
-                if fused is None:
-                    fused = stages.extract_regions_and_textline_multi(
-                        [page_crops[i][0] for i in idxs], self.models, cfg,
-                        return_device_textline=keep_dev,
-                        textline_projection=tp)
-            except Exception:
-                LOG.warning("multi-page fused segmentation failed for %s; "
-                            "falling back to per-page device phases",
-                            [items[i][1] for i in idxs], exc_info=True)
+            with profiling.span("region_extraction.model",
+                                pages=[items[i][1] for i in idxs]) as sp:
                 fused = None
+                try:
+                    if canvases is not None:
+                        # page_coord = [y0, y1, x0, x1] in working
+                        # coordinates
+                        boxes = [[page_crops[i][1][0], page_crops[i][1][2],
+                                  page_crops[i][0].shape[0],
+                                  page_crops[i][0].shape[1]] for i in idxs]
+                        fused = stages.extract_regions_and_textline_resident(
+                            [canvases[i] for i in idxs], boxes, self.models,
+                            cfg, return_device_textline=keep_dev,
+                            textline_projection=tp)
+                    if fused is None:
+                        fused = stages.extract_regions_and_textline_multi(
+                            [page_crops[i][0] for i in idxs], self.models,
+                            cfg, return_device_textline=keep_dev,
+                            textline_projection=tp)
+                except Exception:
+                    LOG.warning("multi-page fused segmentation failed for "
+                                "%s; falling back to per-page device phases",
+                                [items[i][1] for i in idxs], exc_info=True)
+                    fused = None
             if fused is None:
                 self._fell_back("per_page_dispatch")
                 for i in idxs:
                     states[i] = self._device_phase_or_none(*items[i])
                 continue
-            t_share = (time.time() - t1) / len(idxs)
+            t_share = sp.seconds / len(idxs)
             d_share, f_share = (v / len(idxs) for v in stagetime.snapshot())
             for i, masks in zip(idxs, fused):
                 region_mask, textline_mask, textline_dev, textline_proj = \
@@ -615,45 +661,59 @@ class TextlineDetector:
         the resident deskew dispatch. The pipelined batch runs this for
         a group as soon as its device phase is done and BEFORE it submits
         the next group, so that the chains are on the device before the
-        host turns to anything else. Returns an opaque dict for host_phase, or None (host_phase
-        then does everything itself, also after any failure here)."""
+        host turns to anything else. Returns an opaque dict for
+        host_phase, or None (host_phase then does everything itself, also
+        after any failure here). A `host.dispatch` span in the page's
+        list."""
         if st.region_mask is None or st.textline_dev is None:
             return None
-        try:
-            t1 = time.time()
-            contours, boxes = stages.region_contours_and_boxes(
-                st.region_mask, self.config)
-            t_contours = time.time() - t1
-            stagetime.reset()
-            t2 = time.time()
-            handle = None
-            if contours and st.spec is not None:
-                handle = stages.deskew_finalize_spec(
-                    st.spec, boxes, self.deskew, st.textline_dev)
-            elif contours:
-                handle = stages.deskew_dispatch_resident(
-                    boxes, self.deskew, st.textline_dev)
-            # the chain is only enqueued here: its ledger is read in
-            # host_phase, after the collect
-            return {"contours": contours, "boxes": boxes,
-                    "t_contours": t_contours, "handle": handle,
-                    "t_dispatch": time.time() - t2,
-                    "ledger": stagetime.detach()}
-        except Exception:
-            LOG.warning("host-phase dispatch failed for %s; host_phase "
-                        "will redo it", st.image_filename, exc_info=True)
-            return None
+        with profiling.record_into(st.spans, st.image_filename), \
+                profiling.span("host.dispatch"):
+            try:
+                with profiling.span("host.contours") as sc:
+                    contours, boxes = stages.region_contours_and_boxes(
+                        st.region_mask, self.config)
+                stagetime.reset()
+                with profiling.span("deskew") as sd:
+                    handle = None
+                    if contours and st.spec is not None:
+                        handle = stages.deskew_finalize_spec(
+                            st.spec, boxes, self.deskew, st.textline_dev)
+                    elif contours:
+                        handle = stages.deskew_dispatch_resident(
+                            boxes, self.deskew, st.textline_dev)
+                # the chain is only enqueued here: its ledger is read in
+                # host_phase, after the collect
+                return {"contours": contours, "boxes": boxes,
+                        "t_contours": sc.seconds, "handle": handle,
+                        "t_dispatch": sd.seconds,
+                        "ledger": stagetime.detach()}
+            except Exception:
+                LOG.warning("host-phase dispatch failed for %s; host_phase "
+                            "will redo it", st.image_filename, exc_info=True)
+                return None
 
     def host_phase(self, st: _DeviceState,
                    pre: Optional[Dict] = None) -> PageResult:
         """Contours, deskew + line split, reading order, PAGE-XML. `pre`:
         optional result of host_phase_dispatch. A failure here keeps the
-        page box of the device phase and writes empty regions."""
+        page box of the device phase and writes empty regions. A
+        `host.phase` span in the page's list."""
+        with profiling.record_into(st.spans, st.image_filename):
+            phase = profiling.span("host.phase")
+            try:
+                return self._host_phase(st, pre, phase)
+            finally:
+                profiling.end(phase)
+
+    def _host_phase(self, st: _DeviceState, pre: Optional[Dict],
+                    phase: profiling.Span) -> PageResult:
+        """host_phase's work; it ends the span `phase` before it reads the
+        page's total from it."""
         cfg = self.config
         t = dict(st.timings)
         dev = dict(st.device_timings)
         flops = st.flops
-        t0_all = time.time()
         contours: List[np.ndarray] = []
         boxes: List[List[int]] = []
         slopes: List[float] = []
@@ -663,23 +723,23 @@ class TextlineDetector:
         all_box_coord: List[List[int]] = []
         degraded = st.failed
         try:
-            t1 = time.time()
-            pre_contours = 0.0
+            t_contours = 0.0
             if pre is not None:
                 contours, boxes = pre["contours"], pre["boxes"]
-                pre_contours = pre["t_contours"]
+                t_contours = pre["t_contours"]
             elif st.region_mask is not None:
-                try:
-                    contours, boxes = stages.region_contours_and_boxes(
-                        st.region_mask, cfg)
-                except Exception:
-                    LOG.warning("region contour extraction failed for %s",
-                                st.image_filename, exc_info=True)
-                    contours, boxes = [], []
-                    degraded = True
+                with profiling.span("host.contours") as sc:
+                    try:
+                        contours, boxes = stages.region_contours_and_boxes(
+                            st.region_mask, cfg)
+                    except Exception:
+                        LOG.warning("region contour extraction failed for "
+                                    "%s", st.image_filename, exc_info=True)
+                        contours, boxes = [], []
+                        degraded = True
+                t_contours = sc.seconds
             t["region_extraction"] = (
-                st.timings.get("region_extraction_model", 0.0)
-                + pre_contours + time.time() - t1)
+                st.timings.get("region_extraction_model", 0.0) + t_contours)
 
             if contours and st.textline_mask is None \
                     and st.textline_dev is None:
@@ -687,24 +747,26 @@ class TextlineDetector:
                 degraded = True
             if contours:
                 stagetime.reset()
-                t3 = time.time()
-                handle = pre.get("handle") if pre else None
-                attempted = pre is not None
-                if not attempted and st.spec is not None:
-                    # no host_phase_dispatch ran: resolve the speculative
-                    # dispatch here rather than dispatch anew
-                    handle = stages.deskew_finalize_spec(
-                        st.spec, boxes, self.deskew, st.textline_dev)
-                    attempted = True
-                slopes, textlines = stages.slopes_and_lines(
-                    contours, boxes, st.textline_mask, cfg, self.deskew,
-                    textline_dev=st.textline_dev, deskew_handle=handle,
-                    textline_mask_fetch=st.textline_mask_or_fetch,
-                    deskew_attempted=attempted,
-                    on_fallback=self._fell_back, timings=t)
+                with profiling.span("deskew") as sd:
+                    handle = pre.get("handle") if pre else None
+                    attempted = pre is not None
+                    if not attempted and st.spec is not None:
+                        # no host_phase_dispatch ran: resolve the
+                        # speculative dispatch here rather than dispatch
+                        # anew
+                        handle = stages.deskew_finalize_spec(
+                            st.spec, boxes, self.deskew, st.textline_dev)
+                        attempted = True
+                    slopes, textlines = stages.slopes_and_lines(
+                        contours, boxes, st.textline_mask, cfg, self.deskew,
+                        textline_dev=st.textline_dev, deskew_handle=handle,
+                        textline_mask_fetch=st.textline_mask_or_fetch,
+                        deskew_attempted=attempted,
+                        on_fallback=self._fell_back, timings=t)
                 # deskew: the sweeps or the chain with their wait for the
-                # device; line_split: the host's per-region line extraction
-                t["deskew"] = time.time() - t3 - t.get("line_split", 0.0)
+                # device; line_split (a span inside it): the host's
+                # per-region line extraction
+                t["deskew"] = sd.seconds - t.get("line_split", 0.0)
                 dev["deskew"], f = stagetime.snapshot()
                 flops += f
                 if pre is not None:
@@ -713,19 +775,20 @@ class TextlineDetector:
                     dev["deskew"] += d
                     flops += f
 
-                t4 = time.time()
-                if st.textline_proj is not None:
-                    indexes_sorted, matrix = \
-                        order_mod.order_of_regions_from_projection(
-                            st.textline_proj, st.crop_hw[0], contours,
+                with profiling.span("reading_order") as so:
+                    if st.textline_proj is not None:
+                        indexes_sorted, matrix = \
+                            order_mod.order_of_regions_from_projection(
+                                st.textline_proj, st.crop_hw[0], contours,
+                                cfg.reading_order)
+                    else:
+                        indexes_sorted, matrix = order_mod.order_of_regions(
+                            st.textline_mask_or_fetch(), contours,
                             cfg.reading_order)
-                else:
-                    indexes_sorted, matrix = order_mod.order_of_regions(
-                        st.textline_mask_or_fetch(), contours,
-                        cfg.reading_order)
-                order_of_texts, id_of_texts = order_mod.order_and_id_of_texts(
-                    contours, matrix, indexes_sorted)
-                t["reading_order"] = time.time() - t4
+                    order_of_texts, id_of_texts = \
+                        order_mod.order_and_id_of_texts(contours, matrix,
+                                                        indexes_sorted)
+                t["reading_order"] = so.seconds
                 # all_box_coord = [y0, y1, x0, x1] per region (main.py:483-487)
                 all_box_coord = [[b[1], b[1] + b[3], b[0], b[0] + b[2]]
                                  for b in boxes]
@@ -742,7 +805,8 @@ class TextlineDetector:
         tree = self._xml(st.image_filename, st.scaled, st.cont_page,
                          st.page_coord, contours, order_of_texts,
                          id_of_texts, textlines, all_box_coord)
-        t["total"] = sum(st.timings.values()) + time.time() - t0_all
+        profiling.end(phase)
+        t["total"] = sum(st.timings.values()) + phase.seconds
         if pre is not None:
             # host_phase_dispatch ran outside this wall but its contour +
             # dispatch time is inside the stage keys: keep sum(stages) <=
@@ -751,30 +815,37 @@ class TextlineDetector:
         t.pop("region_extraction_model", None)
         dev["total"] = sum(dev.values())
         return PageResult(tree, contours, slopes, textlines, st.page_coord,
-                          t, dev, flops, degraded)
+                          t, dev, flops, degraded, st.spans)
 
     def _xml(self, image_filename, scaled, cont_page, page_coord, contours,
              order_of_texts, id_of_texts, textlines, all_box_coord):
-        return pagexml_writer.build_page_xml(
-            image_filename=image_filename,
-            height_org=scaled.height_org, width_org=scaled.width_org,
-            scale_x=scaled.scale_x, scale_y=scaled.scale_y,
-            cont_page=cont_page, contours=contours, page_coord=page_coord,
-            order_of_texts=order_of_texts, id_of_texts=id_of_texts,
-            all_found_textline_polygons=textlines,
-            all_box_coord=all_box_coord, cfg=self.config.pagexml)
+        with profiling.span("pagexml.build"):
+            return pagexml_writer.build_page_xml(
+                image_filename=image_filename,
+                height_org=scaled.height_org, width_org=scaled.width_org,
+                scale_x=scaled.scale_x, scale_y=scaled.scale_y,
+                cont_page=cont_page, contours=contours,
+                page_coord=page_coord, order_of_texts=order_of_texts,
+                id_of_texts=id_of_texts,
+                all_found_textline_polygons=textlines,
+                all_box_coord=all_box_coord, cfg=self.config.pagexml)
 
-    def _degraded_result(self, image: np.ndarray,
-                         image_filename: str) -> PageResult:
+    def _degraded_result(self, image: np.ndarray, image_filename: str,
+                         spans: Optional[List[profiling.Span]] = None
+                         ) -> PageResult:
         """Empty PAGE-XML over the whole page (main.py:2152-2156), for a
-        page that failed before any page box existed."""
+        page that failed before any page box existed; it carries `spans`,
+        the page's list so far."""
+        spans = [] if spans is None else spans
         self._page_degraded()
         th, tw = stages.working_dims(image, self.config)
         scaled = stages.LazyScaledImage(image, th, tw)
         page_coord = [0, th - 1, 0, tw - 1]
-        tree = self._xml(image_filename, scaled, _page_quad(page_coord),
-                         page_coord, [], None, None, [], [])
-        return PageResult(tree, [], [], [], page_coord, {}, degraded=True)
+        with profiling.record_into(spans, image_filename):
+            tree = self._xml(image_filename, scaled, _page_quad(page_coord),
+                             page_coord, [], None, None, [], [])
+        return PageResult(tree, [], [], [], page_coord, {}, degraded=True,
+                          spans=spans)
 
     # -- warm start ------------------------------------------------------------
     def warm_up(self, height: int = 3508, width: int = 2480,
@@ -1046,7 +1117,7 @@ class TextlineDetector:
         def window_boxes(window):
             mh, mw = self.models.page.input_hw
             dims, smalls = [], []
-            for img, _ in window:
+            for img, _, _, _ in window:
                 th, tw = stages.working_dims(img, self.config)
                 dims.append((th, tw))
                 smalls.append(stages.page_model_input_from_raw(
@@ -1055,8 +1126,8 @@ class TextlineDetector:
                 np.stack(smalls), pad_to=batch)
             return [stages._page_box_or_whole(lab, th, tw, self.config,
                                               self._fell_back, name)
-                    for (th, tw), lab, (_, name) in zip(dims, labels,
-                                                        window)]
+                    for (th, tw), lab, (_, name, _, _) in zip(dims, labels,
+                                                              window)]
 
         def worker():
             it = None
@@ -1065,26 +1136,31 @@ class TextlineDetector:
             try:
                 it = iter(images)
                 while True:
-                    window = list(itertools.islice(it, batch))
+                    window = _pull(it, batch)
                     put_count = 0
                     if not window:
                         break
                     stagetime.reset()
-                    t0 = time.time()
                     pre_boxes = None
-                    try:
-                        pre_boxes = window_boxes(window)
-                    except Exception:
-                        LOG.warning("batched page-box stage failed; pages "
-                                    "fall back to per-page forwards",
-                                    exc_info=True)
-                        self._fell_back("page_box_batch")
-                    d, f = stagetime.snapshot()
+                    names = [name for _, name, _, _ in window]
+                    shared: List[profiling.Span] = []
+                    with profiling.record_into(shared, ""), \
+                            profiling.span("prefetch.window",
+                                           pages=names) as sp:
+                        try:
+                            pre_boxes = window_boxes(window)
+                        except Exception:
+                            LOG.warning("batched page-box stage failed; "
+                                        "pages fall back to per-page "
+                                        "forwards", exc_info=True)
+                            self._fell_back("page_box_batch")
+                        d, f = stagetime.snapshot()
                     n = len(window)
-                    share = ((time.time() - t0) / n, d / n, f / n)
-                    for i, (img, name) in enumerate(window):
+                    share = (sp.seconds / n, d / n, f / n)
+                    for i, (img, name, _, spans) in enumerate(window):
+                        profiling.adopt(spans, shared, name)
                         put((img, name, (pre_boxes[i],) + share
-                             if pre_boxes is not None else None))
+                             if pre_boxes is not None else None, spans))
                         put_count = i + 1
             except _ConsumerGone:
                 return
@@ -1094,10 +1170,10 @@ class TextlineDetector:
                             exc_info=True)
                 self._fell_back("page_box_batch")
                 try:
-                    for img, name in window[put_count:]:
-                        put((img, name, None))
+                    for img, name, _, spans in window[put_count:]:
+                        put((img, name, None, spans))
                     for img, name in (it or ()):
-                        put((img, name, None))
+                        put((img, name, None, []))
                 except _ConsumerGone:
                     return
                 except BaseException:
@@ -1122,11 +1198,16 @@ class TextlineDetector:
     # -- public API --------------------------------------------------------
     def process_image(self, image: np.ndarray,
                       image_filename: str = "") -> PageResult:
-        """Run the full cascade on an RGB uint8 page image."""
-        st = self._device_phase_or_none(image, image_filename)
-        if st is None:
-            return self._degraded_result(image, image_filename)
-        return self.host_phase(st, self.host_phase_dispatch(st))
+        """Run the full cascade on an RGB uint8 page image, in a
+        `process_image` span, the root of the page's spans."""
+        spans: List[profiling.Span] = []
+        with profiling.record_into(spans, image_filename), \
+                profiling.span("process_image"):
+            st = self._device_phase_or_none(image, image_filename)
+            if st is None:
+                return self._degraded_result(image, image_filename, spans)
+            st.spans = spans
+            return self.host_phase(st, self.host_phase_dispatch(st))
 
     def process_batch(self, images: Iterable[Tuple[np.ndarray, str]],
                       prefetch: int = 1) -> Iterator[PageResult]:
@@ -1154,7 +1235,9 @@ class TextlineDetector:
         def grouped():
             it = iter(source)
             while True:
-                group = list(itertools.islice(it, group_size))
+                # the prefetch thread pulled its pages from `images`
+                group = (_pull(it, group_size) if source is images
+                         else list(itertools.islice(it, group_size)))
                 if not group:
                     return
                 yield group
@@ -1175,6 +1258,7 @@ class TextlineDetector:
                 submit()
             while pending:
                 items, fut = pending.popleft()
+                t0 = time.time_ns()
                 try:
                     states = fut.result()
                 except Exception:
@@ -1182,6 +1266,9 @@ class TextlineDetector:
                                 "PAGE-XML", [it[1] for it in items],
                                 exc_info=True)
                     states = [None] * len(items)
+                for _, name, _, spans in items:
+                    spans.append(profiling.finished("batch.wait_device", t0,
+                                                    name))
                 # This group's deskew chains go to the device before the
                 # next group's segmentation is submitted: the card runs
                 # its work in the order of launch, so a chain launched
@@ -1191,7 +1278,8 @@ class TextlineDetector:
                 submit()
                 for item, st, pre in zip(items, states, pres):
                     if st is None:
-                        yield self._degraded_result(item[0], item[1])
+                        yield self._degraded_result(item[0], item[1],
+                                                    item[3])
                     else:
                         yield self.host_phase(st, pre)
         finally:
@@ -1219,6 +1307,21 @@ class TextlineDetector:
                 (load_image(p), p) for p in paths)):
             f_name = os.path.splitext(os.path.basename(path))[0]
             yield result.write(dir_out, f_name)
+
+
+def _pull(it: Iterator, n: int) -> List[tuple]:
+    """Up to `n` pages from the caller's iterator of (image, name), each
+    as (image, name, None, spans) with its pull in a `batch.pull` span."""
+    out = []
+    for _ in range(n):
+        t0 = time.time_ns()
+        try:
+            image, name = next(it)
+        except StopIteration:
+            break
+        out.append((image, name, None,
+                    [profiling.finished("batch.pull", t0, name)]))
+    return out
 
 
 def load_image(path: str) -> np.ndarray:

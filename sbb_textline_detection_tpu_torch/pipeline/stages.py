@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -25,6 +24,7 @@ from sbb_textline_detection_tpu_torch.ops import resize as resize_ops
 from sbb_textline_detection_tpu_torch.ops import rotate as rotate_ops
 from sbb_textline_detection_tpu_torch.pipeline import lines as lines_mod
 from sbb_textline_detection_tpu_torch.pipeline.deskew import DeskewEngine
+from sbb_textline_detection_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -505,10 +505,10 @@ def slopes_and_lines(contours: List[np.ndarray], boxes: List[List[int]],
             on_fallback(rung)
 
     def timed_lines(make_lines):
-        t0 = time.time()
-        lines = make_lines()
+        with profiling.span("line_split") as sp:
+            lines = make_lines()
         if timings is not None:
-            timings["line_split"] = time.time() - t0
+            timings["line_split"] = sp.seconds
         return lines
 
     tried_resident = deskew_attempted or deskew_handle is not None

@@ -24,7 +24,6 @@ from click.testing import CliRunner
 from PIL import Image
 
 from sbb_textline_detection_tpu.pipeline import detector as jdetector
-from sbb_textline_detection_tpu.utils import profiling as jprofiling
 from sbb_textline_detection_tpu_torch import cli
 from sbb_textline_detection_tpu_torch.core.config import DEFAULT_CONFIG
 from sbb_textline_detection_tpu_torch.models import checkpoint
@@ -257,16 +256,6 @@ def test_degraded_page_has_empty_fields(bundles, monkeypatch):
 
 # -- profiling ------------------------------------------------------------------
 
-def test_merge_stage_timings_equals_jax(page_pair):
-    want, got, _ = page_pair
-    timings = [got.timings, want.timings, {"deskew": 2.0, "only_here": 1.0}]
-    assert profiling.merge_stage_timings(timings) == \
-        jprofiling.merge_stage_timings(timings)
-    assert profiling.merge_stage_timings([]) == {}
-    assert profiling.merge_stage_timings(timings)["only_here"] == {
-        "sum": 1.0, "mean": 1.0, "max": 1.0}
-
-
 def test_trace_writes_a_chrome_trace_and_none_is_a_noop(tmp_path):
     with profiling.trace(None):
         pass
@@ -274,13 +263,24 @@ def test_trace_writes_a_chrome_trace_and_none_is_a_noop(tmp_path):
         pass
     assert list(tmp_path.iterdir()) == []
     logdir = tmp_path / "prof"
-    with profiling.trace(str(logdir)):
-        with profiling.annotate("a_named_region"):
+    spans = []
+    with profiling.trace(str(logdir)) as tr:
+        with profiling.record_into(spans, "p.png"), \
+                profiling.span("a_named_region"):
             torch.ones(8).sum()
+        tr.extend(spans)
     files = glob.glob(str(logdir / "trace-*.json"))
     assert len(files) == 1
     events = json.load(open(files[0]))["traceEvents"]
-    assert any(e.get("name") == "a_named_region" for e in events)
+    span, = [e for e in events if e.get("name") == "a_named_region"]
+    assert span["cat"] == "program_span" and span["args"]["page"] == "p.png"
+    # the span holds the profiler's record of the op it ran, on the
+    # profiler's time base
+    op, = [e for e in events if e.get("name") == "aten::ones"]
+    assert span["ts"] <= op["ts"] <= op["ts"] + op["dur"] <= \
+        span["ts"] + span["dur"]
+    assert {"ph": "M", "name": "thread_name", "pid": "program spans",
+            "tid": span["tid"], "args": {"name": "MainThread"}} in events
 
 
 @pytest.fixture
@@ -299,9 +299,9 @@ def tiny_model_dir(tmp_path):
 
 
 def test_cli_timings_and_profile(tiny_model_dir, tmp_path, monkeypatch):
-    """`--timings` prints every stage key of each page, its device seconds
-    and FLOPs; `--profile DIR` leaves a trace file; a directory runs as
-    one batch."""
+    """`--timings` prints every stage key of each page, its device seconds,
+    FLOPs, tiles and fetches; `--profile DIR` leaves a trace file that
+    holds both pages' spans; a directory runs as one batch."""
     monkeypatch.setattr(cli, "DEFAULT_CONFIG", _cfg(compute_dtype="float32"))
     pages = tmp_path / "pages"
     pages.mkdir()
@@ -317,9 +317,15 @@ def test_cli_timings_and_profile(tiny_model_dir, tmp_path, monkeypatch):
     assert (out / "s0.xml").exists() and (out / "s3.xml").exists()
     for key in ("page_extraction=", "region_extraction=", "deskew=",
                 "line_split=", "reading_order=", "total=", "device: ",
-                "flops="):
+                "flops=", "tiles=", "fetches=", "fetch_bytes="):
         assert res.output.count(key) >= 2, (key, res.output)
-    assert len(glob.glob(str(prof / "trace-*.json"))) == 1
+    assert "tiles=0 " not in res.output and "fetches=0 " not in res.output
+    files = glob.glob(str(prof / "trace-*.json"))
+    assert len(files) == 1
+    events = json.load(open(files[0]))["traceEvents"]
+    phases = [e for e in events if e.get("name") == "host.phase"]
+    assert sorted(e["args"]["page"] for e in phases) == [
+        str(pages / "s0.png"), str(pages / "s3.png")]
 
     quiet = CliRunner().invoke(cli.main, [
         "-i", str(pages / "s0.png"), "-o", str(out), "-m", tiny_model_dir,
