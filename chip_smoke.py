@@ -32,8 +32,26 @@ Phases (any failure raises and the script exits non-zero):
      logits against the CPU's (BF16_LOGIT_MEAN, BF16_LOGIT_MAX,
      BF16_ARGMAX_AGREE), each ConvGN's GroupNorm output against the CPU's
      on the CPU block's input (BF16_GN_MAX_ABS, which the conv's sum
-     rounded to bf16 first must exceed in every block), and the bf16
-     forward's time as served and inside full_f32;
+     rounded to bf16 first must exceed in every block), each ConvGN's
+     bf16 output, from the convgn kernels, likewise (one bf16 step and
+     BF16_OUT_EXCESS), and the bf16 forward's time as served and inside
+     full_f32;
+ 3a. the ConvGN epilogue's kernels (convgn_phase, csrc/convgn.cu, built
+     here) at the served shapes: each of a flagship-width TpuUnet's 28
+     ConvGN outputs on a chunk of CONVGN_N tiles of 448 x 448, from a
+     tensor shaped like a conv's float32 sum, against the plain
+     composition (ops/groupnorm.epilogue_plain) as convgn_within says:
+     per-(n, c) mean and mul within CONVGN_STAT_RTOL of the same formula
+     in float64 (the plain composition's float32 figures beside), bf16 outputs
+     different on at most CONVGN_ULP_SHARE of the elements, by 1 ulp at
+     most away from zero; two launches bitwise equal; the
+     pair, the plain composition and the library's F.group_norm + F.gelu
+     (which the port never calls) timed with CUDA events beside the bound
+     (CONVGN_BOUND_BYTES an element at 3.35 TB/s); then CONVGN_FORWARDS
+     random-init bf16 dual-head forwards of the chunk, which must launch
+     exactly two kernels a ConvGN, timed on the kernels and on the plain
+     composition. The bf16 check of phase 3 (_unet_bf16) runs its card
+     forward through the kernels and fails unless it launched them;
   4. (every serving run below uses DEFAULT_CONFIG with the deskew buffer
      cap lifted to SMOKE_BUF_MAX, see there; flags_phase also serves the
      reference's cap) a full-width random-weight bundle (the JAX package's
@@ -182,10 +200,12 @@ Phases (any failure raises and the script exits non-zero):
 The line before the last is {"kernels": [...]}; the last line is {"ok": true,
 "device": {...}}. The kernel line's launches add up phases 4, 4a (its
 children's too), 5, 6 (the flags), 7 (a)-(d), 7a (warm_up and both passes), 8
-(c), 9, 10 and 11. With --only batch, phases 4 (classic bundle), 4a, 5, 7a, 8,
+(c), 9, 10 and 11, for each kernel (_served_run: every such served run must
+launch the two convgn kernels for each of its ConvGN forwards, and the runs
+together some). With --only batch, phases 4 (classic bundle), 4a, 5, 7a, 8,
 9, 10 and 11 are left out (a shorter run while working on the batch); with
---only bench, phase 3's kernel check, 7a and 11 alone run (the default runs
-everything).
+--only bench, phase 3's kernel check, 3a, 7a and 11 alone run (the default
+runs everything).
 With --details PATH, the run's details (ptxas report, per-page stage
 timings, kernel times) are written there as JSON. After the timed pages, the
 second page runs once more under torch.profiler for its device time by op and
@@ -196,11 +216,13 @@ form and the bound are summed.
 """
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -307,6 +329,39 @@ BF16_ARGMAX_AGREE = 0.98
 BF16_GN_MAX_ABS = 1e-3
 # the bf16 forward timed as served and inside full_f32, on this many tiles
 BF16_TIMED_TILES = 16
+# _unet_bf16 (c): each ConvGN's bf16 output on the card (the kernels')
+# against the CPU's on the CPU block's input may differ by one bf16 step
+# of the larger magnitude and BF16_OUT_EXCESS beyond it: the GroupNorm
+# outputs' limit BF16_GN_MAX_ABS through GELU, whose slope is at most
+# 1.13
+BF16_OUT_EXCESS = 1.13 * BF16_GN_MAX_ABS
+# convgn_phase: the served chunk of tiles (runner._tile_labels: an A4
+# page's 108 tiles in two chunks of 54) and the tile side; the bytes an
+# element the bound counts (the float32 sum read once, the bf16 output
+# written once) at the card's HBM_BYTES_S;
+# the statistics' limit against the same formula in float64 (the mean
+# relative to the rounded sum's rms, mul to itself; the plain
+# composition's float32 statistics miss float64's by more where a
+# channel's mean is several standard deviations, since E[s^2] - E[s]^2
+# cancels: up to 2.0e-6 in mul on the phase's inputs, PERF.md section
+# 6); the share of bf16 outputs that
+# may differ from the plain composition's, by 1 ulp at most where the
+# output's magnitude is CONVGN_NEAR_ZERO or more: nearer zero an ulp is
+# no larger than the change that the plain composition's float32
+# statistics (mul up to 2.0e-6 off) can make to an output, so there an
+# output may lie several ulp off. The largest magnitude that did
+# (convgn_check's `over_1ulp_max_mag`) read 1.21e-4, about 2^-13, over
+# the card tests' 56 cases and the phase's 28 blocks (PERF.md section
+# 6): 2^-11 leaves four times that; the dual-head forwards whose
+# launches are counted
+CONVGN_N = 54
+CONVGN_SIDE = 448
+CONVGN_PAGE_CHUNKS = 2
+CONVGN_BOUND_BYTES = 6
+CONVGN_STAT_RTOL = 1e-6
+CONVGN_ULP_SHARE = 1e-3
+CONVGN_NEAR_ZERO = 2.0 ** -11
+CONVGN_FORWARDS = 2
 # ocrd_phase: (y, x) offset of the second page's crop in its larger scan
 OCRD_CROP = (120, 90)
 # mesh_phase: the limit of the (1, 1) training mesh against the plain
@@ -361,6 +416,46 @@ def _serve_config(**flags):
     return dataclasses.replace(DEFAULT_CONFIG, runtime=dataclasses.replace(
         DEFAULT_CONFIG.runtime, **{"deskew_buf_max": SMOKE_BUF_MAX,
                                    **flags}))
+
+
+# the convgn kernels' launches and the ConvGN forwards of every served run
+# (_served_run), summed for the kernel line
+SERVED_CONVGN = {"launches": 0, "forwards": 0}
+
+
+@contextlib.contextmanager
+def _served_run():
+    """A served run's launch counts: zero the Radon and the ConvGN kernels'
+    launch counters (the body reads radon.launches) and count the run's
+    ConvGN forwards with a module hook. On a clean exit the run's convgn
+    launches and ConvGN forwards join SERVED_CONVGN; it raises unless the
+    run launched the two kernels for each of its ConvGN forwards."""
+    import torch
+
+    from sbb_textline_detection_tpu_torch.models import unet
+    from sbb_textline_detection_tpu_torch.ops import groupnorm, radon
+
+    lock = threading.Lock()
+    forwards = [0]
+
+    def count(module, args, out):
+        if isinstance(module, unet.ConvGN):
+            with lock:
+                forwards[0] += 1
+
+    radon.launches = groupnorm.launches = 0
+    hook = torch.nn.modules.module.register_module_forward_hook(count)
+    try:
+        yield
+    finally:
+        hook.remove()
+    launched = groupnorm.launches
+    SERVED_CONVGN["launches"] += launched
+    SERVED_CONVGN["forwards"] += forwards[0]
+    if launched != 2 * forwards[0]:
+        raise AssertionError(f"a served run launched {launched} convgn "
+                             f"kernels for {forwards[0]} ConvGN forwards, "
+                             f"not two each")
 
 
 def build_native(details):
@@ -661,7 +756,12 @@ def _unet_bf16(dev, details, spec, sd, x):
     block's own input (trace_blocks carrying the CPU's outputs), within
     BF16_GN_MAX_ABS; the same blocks with the conv's sum rounded to bf16
     before GroupNorm (the port's arithmetic before the repair) must exceed
-    it in every block (the witness that the check sees that rounding). The
+    it in every block (the witness that the check sees that rounding); and
+    each block's bf16 output as that forward served it, through the ConvGN
+    kernels (ops/groupnorm), against the CPU block's output, within one
+    bf16 step and BF16_OUT_EXCESS, which the output of the rounded sum's
+    GroupNorm must exceed in every block. The card's forwards take the
+    kernels, two launches a block, which (a)'s forward must show. The
     forward of BF16_TIMED_TILES tiles is timed as served (cuDNN's switch
     as it is) and inside precision.full_f32, as a bundle that also holds
     a float32 model serves it."""
@@ -669,7 +769,8 @@ def _unet_bf16(dev, details, spec, sd, x):
     import torch.nn.functional as F
 
     from sbb_textline_detection_tpu_torch.models import registry, unet
-    from sbb_textline_detection_tpu_torch.ops import precision, radon_bench
+    from sbb_textline_detection_tpu_torch.ops import (groupnorm, precision,
+                                                      radon_bench)
 
     logits = []
     for d in ("cpu", dev):
@@ -681,10 +782,14 @@ def _unet_bf16(dev, details, spec, sd, x):
                 out, cpu_rec = unet.trace_blocks(m, x.permute(0, 3, 1, 2))
                 logits.append(out)
                 continue
-            # as runner._logits serves a bf16 model: TF32 as it is
+            # as runner._logits serves a bf16 model: TF32 as it is, the
+            # ConvGN epilogues on the kernels
+            before = groupnorm.launches
             out, rec = unet.trace_blocks(m, x.to(d).permute(0, 3, 1, 2))
             logits.append(out.cpu())
-            gn_err, gn_err_rounded = _gn_errors(m, x.to(d), cpu_rec)
+            convgn_launches = groupnorm.launches - before
+            gn_err, gn_err_rounded, out_err, out_err_rounded = \
+                _gn_errors(m, x.to(d), cpu_rec)
             tiles = x.to(d).permute(0, 3, 1, 2).repeat(
                 BF16_TIMED_TILES // x.shape[0], 1, 1, 1)
             fwd_ms = radon_bench.cuda_time(lambda: m.forward_nchw(tiles), 5)
@@ -730,12 +835,16 @@ def _unet_bf16(dev, details, spec, sd, x):
            "argmax_agree": agree, "gn_max_abs_err": gn_err,
            "gn_max_abs_err_max": max(gn_err.values()),
            "gn_max_abs_err_conv_rounded": gn_err_rounded,
+           "out_excess": out_err, "out_excess_max": max(out_err.values()),
+           "out_excess_conv_rounded": out_err_rounded,
            "forward_ms": fwd_ms, "forward_ms_full_f32": fwd_ms_f32,
+           "convgn_launches": convgn_launches,
            "timed_tiles": int(tiles.shape[0]), "limits": {
                "conv_sum_rtol": CONV_SUM_RTOL,
                "logit_mean": BF16_LOGIT_MEAN, "logit_max": BF16_LOGIT_MAX,
                "argmax_agree": BF16_ARGMAX_AGREE,
-               "gn_max_abs": BF16_GN_MAX_ABS}}
+               "gn_max_abs": BF16_GN_MAX_ABS,
+               "out_excess": BF16_OUT_EXCESS}}
     details["unet_bf16"] = row
     print(f"bf16 dual-head forward: conv sums vs float64 of the bf16 "
           f"operands, float32 kernels: max rel "
@@ -755,9 +864,19 @@ def _unet_bf16(dev, details, spec, sd, x):
           f"the conv's sum rounded to bf16 first: "
           f"{min(gn_err_rounded.values()):.3g} to "
           f"{max(gn_err_rounded.values()):.3g}", flush=True)
+    print(f"bf16 ConvGN outputs card (the convgn kernels) vs cpu, each "
+          f"block fed the cpu's input: |err| beyond one bf16 step at most "
+          f"{row['out_excess_max']:.3g} (limit {BF16_OUT_EXCESS:g}; worst "
+          f"{max(out_err, key=out_err.get)}); from the conv's sum rounded "
+          f"to bf16 first: {min(out_err_rounded.values()):.3g} to "
+          f"{max(out_err_rounded.values()):.3g}", flush=True)
     print(f"bf16 dual-head forward of {row['timed_tiles']} tiles: "
           f"{fwd_ms:.3f} ms as served, {fwd_ms_f32:.3f} ms inside full_f32 "
           f"(a bundle that also holds a float32 model)", flush=True)
+    if convgn_launches != 2 * len(rec):
+        raise AssertionError(f"the card's bf16 forward launched "
+                             f"{convgn_launches} convgn kernels for "
+                             f"{len(rec)} ConvGN, not two a block")
     bad = [n for n in worst if not max(worst[n], worst_tf32[n])
            <= CONV_SUM_RTOL]
     if bad:
@@ -784,27 +903,318 @@ def _unet_bf16(dev, details, spec, sd, x):
         raise AssertionError("rounding the conv's sum to bf16 before "
                              f"GroupNorm stays within {BF16_GN_MAX_ABS:g} "
                              f"in {blind}: the check cannot see it there")
+    bad = [n for n, e in out_err.items() if not e <= BF16_OUT_EXCESS]
+    if bad:
+        raise AssertionError(f"ConvGN outputs beyond one bf16 step and "
+                             f"{BF16_OUT_EXCESS:g} of the CPU's: {bad}")
+    blind = [n for n, e in out_err_rounded.items()
+             if not e > BF16_OUT_EXCESS]
+    if blind:
+        raise AssertionError("rounding the conv's sum to bf16 before "
+                             f"GroupNorm keeps the outputs within "
+                             f"{BF16_OUT_EXCESS:g} in {blind}: the check "
+                             "cannot see it there")
+
+
+def _bf16_excess(a, b):
+    """The largest |a - b| of two bf16 tensors beyond one bf16 step at
+    the larger of the two magnitudes (0 where they are a step or less
+    apart)."""
+    import torch
+
+    big = torch.maximum(a.abs(), b.abs()).contiguous()
+    step = (big.view(torch.int16) + 1).view(torch.bfloat16).float() \
+        - big.float()
+    return float(((a.float() - b.float()).abs() - step).clamp_min(0).max())
 
 
 def _gn_errors(m, x, cpu_rec):
-    """({block: max |GroupNorm output - the CPU's|}, the same with the
-    conv's sum rounded to bf16 before GroupNorm) of the card's bf16 model
-    `m`, each block fed the CPU block's own input."""
+    """Each block of the card's bf16 model `m` fed the CPU block's own
+    input, against the CPU block: ({block: max |float32 GroupNorm output
+    (ConvGN.conv_gn) - the CPU's|}, the same with the conv's sum rounded
+    to bf16 before GroupNorm, {block: _bf16_excess of the block's output
+    as the forward served it (the kernels) over the CPU's}, the same for
+    the output of the rounded sum's GroupNorm)."""
     import torch
+    import torch.nn.functional as F
 
     from sbb_textline_detection_tpu_torch.models import unet
+    from sbb_textline_detection_tpu_torch.ops import groupnorm
 
     carry = {name: out for name, (_, _, out) in cpu_rec.items()}
     _, rec = unet.trace_blocks(m, x.permute(0, 3, 1, 2), carry)
-    err, rounded = {}, {}
-    for name, (inp, gn, _) in rec.items():
+    err, rounded, out_err, out_rounded = {}, {}, {}, {}
+    for name, (inp, gn, out) in rec.items():
         want = cpu_rec[name][1].to(gn.device)
+        want_out = cpu_rec[name][2].to(out.device)
         err[name] = float((gn - want).abs().max())
+        out_err[name] = _bf16_excess(out, want_out)
         block = m.get_submodule(name)
         r = block.conv_sum(block.pad(inp)).to(torch.bfloat16).float()
-        rounded[name] = float((unet.group_norm(r, r, block.norm) - want)
-                              .abs().max())
-    return err, rounded
+        gn_r = groupnorm.group_norm(r, r, block.norm)
+        rounded[name] = float((gn_r - want).abs().max())
+        out_rounded[name] = _bf16_excess(
+            F.gelu(gn_r, approximate="tanh").to(torch.bfloat16), want_out)
+    return err, rounded, out_err, out_rounded
+
+
+def convgn_block_shapes(widths, refine_width, side):
+    """[(block name, channels, side of its output)] of a TpuUnet's ConvGN
+    blocks on side x side tiles, in call order: stem, encoder, middle,
+    decoder, refine (28 blocks at four widths)."""
+    s = -(-side // 2)
+    shapes = [("stem", widths[0], s)]
+    i = 0
+    for w in widths:
+        shapes += [(f"ConvGN_{i}", w, s), (f"ConvGN_{i + 1}", w, s)]
+        s = -(-s // 2)
+        shapes.append((f"ConvGN_{i + 2}", w, s))
+        i += 3
+    shapes += [(f"ConvGN_{i}", 2 * widths[-1], s),
+               (f"ConvGN_{i + 1}", 2 * widths[-1], s)]
+    i += 2
+    for w in reversed(widths):
+        s *= 2
+        shapes += [(f"ConvGN_{j}", w, s) for j in (i, i + 1, i + 2)]
+        i += 3
+    return shapes + [("refine", refine_width, side)]
+
+
+def conv_sum_like(n, c, side, seed, device):
+    """A float32 channels_last (n, c, side, side) tensor shaped like a
+    conv's sum: per-channel offsets of about one standard deviation, and
+    scales that differ by channel."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    off = torch.randn((1, c, 1, 1), generator=gen, device=device)
+    scale = 0.5 + torch.rand((1, c, 1, 1), generator=gen, device=device)
+    y = torch.randn((n, c, side, side), generator=gen, device=device)
+    return (y * scale + off).contiguous(memory_format=torch.channels_last)
+
+
+def convgn_norm_like(c, seed, device):
+    """A ConvGN's GroupNorm (min(32, c) groups, eps 1e-6) with scales and
+    biases drawn around 1 and 0."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    norm = torch.nn.GroupNorm(min(32, c), c, eps=1e-6)
+    with torch.no_grad():
+        norm.weight.copy_(1 + 0.2 * torch.randn(c, generator=gen))
+        norm.bias.copy_(0.2 * torch.randn(c, generator=gen))
+    return norm.to(device)
+
+
+def ulp_apart(a, b):
+    """Per element, how many bf16 steps lie between bf16 tensors a and b."""
+    import torch
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def convgn_check(y, norm, dtype):
+    """One launch of the ConvGN kernels on `y` against the plain
+    composition. Returns ((out, mean, mul), plain output, numbers): the
+    worst mean error over the rounded sum's rms and relative mul error of
+    the kernels against the same statistics in float64 (`mean_err`,
+    `mul_err`), of the plain composition's float32 ones against float64
+    (`plain_*`) and of the kernels against the plain composition
+    (`*_vs_plain`); in bf16 the apply kernel against the plain arithmetic
+    on the kernels' own statistics (`apply_*`: most ulp apart, share of
+    elements that differ) and the whole pair against the plain
+    composition (`max_ulp`, `ulp_share`, `max_ulp_off_zero` over the
+    elements of magnitude CONVGN_NEAR_ZERO or more, and
+    `over_1ulp_max_mag`, the largest magnitude of an element more than 1
+    ulp off, 0 if none); in float32 the
+    largest |difference| from the plain composition."""
+    import types
+
+    import torch
+    import torch.nn.functional as F
+
+    from sbb_textline_detection_tpu_torch.ops import groupnorm
+
+    out, mean, mul = groupnorm.convgn_cuda(
+        y, norm.weight, norm.bias, norm.eps, norm.num_groups, dtype,
+        stats=True)
+    s = y.to(dtype).to(torch.float32)
+    pmean, pmul = groupnorm.stats_plain(s, norm)
+    rms = (s * s).mean(dim=(2, 3)).sqrt()
+    norm64 = types.SimpleNamespace(num_groups=norm.num_groups, eps=norm.eps,
+                                   weight=norm.weight.double())
+    xmean, xmul = groupnorm.stats_plain(s.double(), norm64)
+    del s
+
+    def errs(m, k, m_ref, k_ref):
+        return (float(((m.double() - m_ref.double()).abs() / rms).max()),
+                float(((k.double() - k_ref.double()).abs()
+                       / k_ref.double().abs()).max()))
+
+    row = {}
+    row["mean_err"], row["mul_err"] = errs(mean, mul, xmean, xmul)
+    row["plain_mean_err"], row["plain_mul_err"] = errs(pmean, pmul, xmean,
+                                                       xmul)
+    row["mean_vs_plain"], row["mul_vs_plain"] = errs(mean, mul, pmean, pmul)
+    plain = groupnorm.epilogue_plain(y, norm, dtype)
+    if dtype != torch.bfloat16:
+        row["max_abs_err"] = float((out - plain).abs().max())
+        return (out, mean, mul), plain, row
+    own = F.gelu((y - mean[:, :, None, None]) * mul[:, :, None, None]
+                 + norm.bias[None, :, None, None], approximate="tanh"
+                 ).to(dtype)
+    ulps = ulp_apart(out, own)
+    row["apply_max_ulp"] = int(ulps.max())
+    row["apply_ulp_share"] = float((ulps > 0).float().mean())
+    del own
+    ulps = ulp_apart(out, plain)
+    off_zero = torch.maximum(out.abs(), plain.abs()) >= CONVGN_NEAR_ZERO
+    row["max_ulp"] = int(ulps.max())
+    row["ulp_share"] = float((ulps > 0).float().mean())
+    row["max_ulp_off_zero"] = int(torch.where(off_zero, ulps, 0).max())
+    row["over_1ulp_max_mag"] = float(torch.where(
+        ulps > 1, torch.maximum(out.abs(), plain.abs()).float(), 0).max())
+    return (out, mean, mul), plain, row
+
+
+def convgn_within(row):
+    """Whether convgn_check's numbers of a bf16 launch meet the limits:
+    statistics within CONVGN_STAT_RTOL of float64's; the apply kernel at
+    most 1 ulp from the plain arithmetic on the same statistics; the pair
+    against the plain composition different on at most CONVGN_ULP_SHARE
+    of the elements, and by at most 1 ulp at magnitudes of
+    CONVGN_NEAR_ZERO or more."""
+    return (row["mean_err"] <= CONVGN_STAT_RTOL
+            and row["mul_err"] <= CONVGN_STAT_RTOL
+            and row["apply_max_ulp"] <= 1
+            and row["apply_ulp_share"] <= CONVGN_ULP_SHARE
+            and row["ulp_share"] <= CONVGN_ULP_SHARE
+            and row["max_ulp_off_zero"] <= 1)
+
+
+def convgn_phase(dev, details):
+    """Phase 3a: the ConvGN kernels at each block's served shape, checked
+    and timed beside the plain composition, the library and the bound;
+    then the launches of whole dual-head forwards. Returns the kernel
+    line's numbers (one chunk's 28 blocks summed)."""
+    import torch
+    import torch.nn.functional as F
+
+    from sbb_textline_detection_tpu_torch.models import (checkpoint,
+                                                         registry, unet)
+    from sbb_textline_detection_tpu_torch.ops import groupnorm, radon_bench
+
+    t0 = time.time()
+    groupnorm.library()
+    details["convgn_build_seconds"] = time.time() - t0
+    details["convgn_ptxas"] = groupnorm.build_log
+    bf16 = torch.bfloat16
+    rows = []
+    with torch.no_grad():
+        for name, c, side in convgn_block_shapes(registry.FLAGSHIP_WIDTHS,
+                                                 32, CONVGN_SIDE):
+            y = conv_sum_like(CONVGN_N, c, side, SEED + c + side, dev)
+            norm = convgn_norm_like(c, SEED + c, dev)
+            args = (y, norm.weight, norm.bias, norm.eps, norm.num_groups,
+                    bf16)
+            first, plain, checks = convgn_check(y, norm, bf16)
+            again = groupnorm.convgn_cuda(*args, stats=True)
+            row = {"block": name, "n": CONVGN_N, "c": c, "side": side,
+                   "elements": y.numel(), **checks,
+                   "bitwise_equal_launches": all(
+                       torch.equal(a, b) for a, b in zip(first, again)),
+                   "bound_ms": 1e3 * CONVGN_BOUND_BYTES * y.numel()
+                   / HBM_BYTES_S}
+            del first, again, plain
+            row["ms"] = radon_bench.cuda_time(
+                lambda: groupnorm.convgn_cuda(*args), 20)
+            row["plain_ms"] = radon_bench.cuda_time(
+                lambda: groupnorm.epilogue_plain(y, norm, bf16), 3)
+            row["library_ms"] = radon_bench.cuda_time(
+                lambda: F.gelu(F.group_norm(y, norm.num_groups, norm.weight,
+                                            norm.bias, norm.eps),
+                               approximate="tanh").to(bf16), 3)
+            rows.append(row)
+            print(f"convgn {name} ({CONVGN_N}, {c}, {side}, {side}): "
+                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
+                  f"library {row['library_ms']:.3f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms; against float64 mean "
+                  f"{row['mean_err']:.3g}, mul {row['mul_err']:.3g} (plain "
+                  f"{row['plain_mean_err']:.3g}, {row['plain_mul_err']:.3g}"
+                  f"); against plain {row['mean_vs_plain']:.3g}, "
+                  f"{row['mul_vs_plain']:.3g}; apply on its own statistics "
+                  f"{row['apply_max_ulp']} ulp at most on "
+                  f"{row['apply_ulp_share']:.3g} of the elements; against "
+                  f"the plain composition {row['ulp_share']:.3g} differ, "
+                  f"{row['max_ulp']} ulp at most ({row['max_ulp_off_zero']}"
+                  f" at magnitudes >= {CONVGN_NEAR_ZERO:g}; more than 1 "
+                  f"only up to {row['over_1ulp_max_mag']:.3g}); launches "
+                  f"equal "
+                  f"{row['bitwise_equal_launches']}", flush=True)
+            del y
+        summary = {k: sum(r[k] for r in rows) for k in
+                   ("ms", "plain_ms", "library_ms", "bound_ms", "elements")}
+        summary["bound_by"] = "bytes"
+        for k in ("mean_err", "mul_err", "plain_mean_err", "plain_mul_err",
+                  "mean_vs_plain", "mul_vs_plain", "apply_max_ulp",
+                  "apply_ulp_share", "max_ulp", "ulp_share",
+                  "max_ulp_off_zero", "over_1ulp_max_mag"):
+            summary[k] = max(r[k] for r in rows)
+
+        spec = registry.DUALHEAD_SPEC
+        model = registry.build_module(spec, bf16)
+        model.load_state_dict(checkpoint.random_init(
+            spec, torch.Generator().manual_seed(SEED)))
+        model = model.to(dev).eval()
+        tiles = torch.rand((CONVGN_N, CONVGN_SIDE, CONVGN_SIDE,
+                            spec.in_channels), generator=torch.Generator()
+                           .manual_seed(SEED + 1)).to(dev)
+        blocks = sum(1 for m in model.modules()
+                     if isinstance(m, unet.ConvGN))
+        before = groupnorm.launches
+        for _ in range(CONVGN_FORWARDS):
+            model(tiles)
+        torch.cuda.synchronize()
+        counted = groupnorm.launches - before
+        summary["forward_ms"] = radon_bench.cuda_time(lambda: model(tiles),
+                                                      3)
+        real = groupnorm.uses_kernels
+        groupnorm.uses_kernels = lambda *a: False
+        try:
+            summary["forward_ms_plain"] = radon_bench.cuda_time(
+                lambda: model(tiles), 3)
+        finally:
+            groupnorm.uses_kernels = real
+    summary.update(forward_launches=counted, forwards=CONVGN_FORWARDS,
+                   convgn_blocks=blocks, page_ms=CONVGN_PAGE_CHUNKS
+                   * summary["ms"], page_bound_ms=CONVGN_PAGE_CHUNKS
+                   * summary["bound_ms"], page_plain_ms=CONVGN_PAGE_CHUNKS
+                   * summary["plain_ms"])
+    details["convgn"] = {"blocks": rows, "summary": summary, "limits": {
+        "stat_rtol": CONVGN_STAT_RTOL, "ulp_share": CONVGN_ULP_SHARE,
+        "near_zero": CONVGN_NEAR_ZERO}}
+    print(f"convgn kernels, the 28 blocks of a {CONVGN_N}-tile chunk: "
+          f"{summary['ms']:.3f} ms (a page's two chunks "
+          f"{summary['page_ms']:.3f} ms a trunk), bound "
+          f"{summary['bound_ms']:.3f} ms by bytes, plain "
+          f"{summary['plain_ms']:.3f} ms, library (F.group_norm + F.gelu) "
+          f"{summary['library_ms']:.3f} ms; dual-head forward of the chunk "
+          f"{summary['forward_ms']:.2f} ms, on the plain composition "
+          f"{summary['forward_ms_plain']:.2f} ms; {counted} launches in "
+          f"{CONVGN_FORWARDS} forwards of {blocks} ConvGN", flush=True)
+    bad = [r["block"] for r in rows
+           if not (convgn_within(r) and r["bitwise_equal_launches"])]
+    if bad:
+        raise AssertionError(f"convgn kernels beyond their limits or not "
+                             f"reproducible in {bad}")
+    if counted != 2 * blocks * CONVGN_FORWARDS:
+        raise AssertionError(f"{counted} convgn launches in "
+                             f"{CONVGN_FORWARDS} forwards of {blocks} "
+                             f"ConvGN, not two a block")
+    return summary
 
 
 def _smoke_pages():
@@ -845,16 +1255,16 @@ def pipeline_phase(dev, details):
     det = TextlineDetector(_serving_bundle(dev), _serve_config())
     pages = _smoke_pages()
 
-    radon.launches = 0
     secs, results = [], []
-    t0 = time.time()
-    for res in det.process_batch(pages):
-        torch.cuda.synchronize()
-        t1 = time.time()
-        secs.append(t1 - t0)
-        results.append(res)
-        t0 = t1
-    launches = radon.launches
+    with _served_run():
+        t0 = time.time()
+        for res in det.process_batch(pages):
+            torch.cuda.synchronize()
+            t1 = time.time()
+            secs.append(t1 - t0)
+            results.append(res)
+            t0 = t1
+        launches = radon.launches
 
     per_page = []
     for (img, name), res, sec in zip(pages, results, secs):
@@ -924,11 +1334,11 @@ def _watched_page(det, page):
     det.device_phase = device_phase
     try:
         torch.cuda.synchronize()
-        radon.launches = 0
-        t0 = time.time()
-        res = det.process_image(*page)
-        torch.cuda.synchronize()
-        return res, states[0], time.time() - t0, radon.launches
+        with _served_run():
+            t0 = time.time()
+            res = det.process_image(*page)
+            torch.cuda.synchronize()
+            return res, states[0], time.time() - t0, radon.launches
     finally:
         del det.device_phase
 
@@ -1670,14 +2080,14 @@ def batch_phase(details, models):
         det.host_phase = host_phase
         try:
             torch.cuda.synchronize()
-            radon.launches = 0
-            t0 = time.time()
-            if batched:
-                results = list(det.process_batch(iter(todo)))
-            else:
-                results = [det.process_image(*p) for p in todo]
-            torch.cuda.synchronize()
-            return results, masks, time.time() - t0, radon.launches
+            with _served_run():
+                t0 = time.time()
+                if batched:
+                    results = list(det.process_batch(iter(todo)))
+                else:
+                    results = [det.process_image(*p) for p in todo]
+                torch.cuda.synchronize()
+                return results, masks, time.time() - t0, radon.launches
         finally:
             del det.host_phase
 
@@ -2070,12 +2480,12 @@ def classic_phase(dev, details):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         chunks.clear()
-        radon.launches = 0
-        t0 = time.time()
-        res = det.process_image(img, name)
-        torch.cuda.synchronize()
-        sec = time.time() - t0
-        launches = radon.launches
+        with _served_run():
+            t0 = time.time()
+            res = det.process_image(img, name)
+            torch.cuda.synchronize()
+            sec = time.time() - t0
+            launches = radon.launches
         total += launches
         peak = torch.cuda.max_memory_allocated(dev)
         root = ET.fromstring(ET.tostring(res.xml_tree.getroot()))
@@ -2424,9 +2834,9 @@ def bench_phase(dev, details, details_path=None):
     det = _cap_spied(TextlineDetector(models, DEFAULT_CONFIG))
     mix = bench.bench_mix(BENCH_PAGES)
     pages, layouts = bench.bench_pages(BENCH_PAGES, *WARM_HW)
-    radon.launches = 0
-    served = bench.serve(det, pages, *WARM_HW)
-    launches = radon.launches
+    with _served_run():
+        served = bench.serve(det, pages, *WARM_HW)
+        launches = radon.launches
     scores = bench.page_scores(served, layouts)
     out = bench.result(served, scores, layouts, mix)
     print(json.dumps(out), flush=True)
@@ -2535,11 +2945,11 @@ def serve_trained_phase(dev, details, ckpt, random_regions):
     det = TextlineDetector(models, _serve_config())
     img, layout = synthetic.make_page(np.random.default_rng(SEED), 3508,
                                       2480, skew_deg=SKEWS[0])
-    radon.launches = 0
-    t0 = time.time()
-    res = det.process_image(img, "a4_trained.png")
-    sec = time.time() - t0
-    launches = radon.launches
+    with _served_run():
+        t0 = time.time()
+        res = det.process_image(img, "a4_trained.png")
+        sec = time.time() - t0
+        launches = radon.launches
     score = layout_eval.evaluate_layout(res, layout)
     details["serve_trained"] = {
         "seconds": sec,
@@ -2577,13 +2987,14 @@ def ab_phase(dev, details, ckpt):
     t0 = time.time()
     models = ab.load_bundle(ckpt, BENCH_TRAIN_STEPS, dev)
     pages, layouts = bench.bench_pages(BENCH_PAGES, *WARM_HW)
-    radon.launches = 0
-    records = [ab.run_study(ab.STUDIES[name], models, pages, layouts,
-                            rounds, arms, device=dev)
-               for name, rounds, arms in (("spec", 0, None),
-                                          ("paths", 0, None),
-                                          ("workers", 1, ("serial", "w2")))]
-    launches = radon.launches
+    with _served_run():
+        records = [ab.run_study(ab.STUDIES[name], models, pages, layouts,
+                                rounds, arms, device=dev)
+                   for name, rounds, arms in (("spec", 0, None),
+                                              ("paths", 0, None),
+                                              ("workers", 1,
+                                               ("serial", "w2")))]
+        launches = radon.launches
     seconds = time.time() - t0
     details["ab"] = {"seconds": seconds, "radon_launches": launches,
                      "records": records}
@@ -2706,12 +3117,13 @@ def ocrd_phase(dev, details):
 
                 def process_image(img, name):
                     torch.cuda.synchronize()
-                    radon.launches = 0
-                    t0 = time.time()
-                    res = real_process(img, name)
-                    torch.cuda.synchronize()
-                    per_page.append({"seconds": time.time() - t0,
-                                     "radon_launches": radon.launches,
+                    with _served_run():
+                        t0 = time.time()
+                        res = real_process(img, name)
+                        torch.cuda.synchronize()
+                        sec, launched = time.time() - t0, radon.launches
+                    per_page.append({"seconds": sec,
+                                     "radon_launches": launched,
                                      "degraded": res.degraded,
                                      "regions": len(res.contours),
                                      "xml": res.xml_tree.getroot()})
@@ -2828,11 +3240,11 @@ def _served(det, pages, warm=None):
     det.host_phase = host_phase
     try:
         torch.cuda.synchronize()
-        radon.launches = 0
-        t0 = time.time()
-        results = list(det.process_batch(iter(pages)))
-        torch.cuda.synchronize()
-        return results, masks, time.time() - t0, radon.launches
+        with _served_run():
+            t0 = time.time()
+            results = list(det.process_batch(iter(pages)))
+            torch.cuda.synchronize()
+            return results, masks, time.time() - t0, radon.launches
     finally:
         del det.host_phase
 
@@ -3051,29 +3463,31 @@ def warm_child(mode, dev):
     torch.cuda.synchronize()
     out = {"mode": mode, "bundle_s": time.time() - t0}
     if mode == "warm":
-        radon.launches = 0
-        t0 = time.time()
-        out["warm_up"] = det.warm_up(*WARM_HW)
-        out["warm_up_s"] = time.time() - t0
-        out["warm_up_launches"] = radon.launches
+        with _served_run():
+            t0 = time.time()
+            out["warm_up"] = det.warm_up(*WARM_HW)
+            out["warm_up_s"] = time.time() - t0
+            out["warm_up_launches"] = radon.launches
         print(f"warm child: warm_up {out['warm_up_s']:.3f} s, "
               f"{out['warm_up_launches']} radon launches: "
               + ", ".join(f"{k} {v:.3f} s"
                           for k, v in out["warm_up"].items()), flush=True)
     out.update(page_s=[], xml_sha256=[], regions=[])
-    radon.launches = 0
-    for page in pages:
-        torch.cuda.synchronize()
-        t0 = time.time()
-        res = det.process_image(*page)
-        torch.cuda.synchronize()
-        out["page_s"].append(time.time() - t0)
-        out["xml_sha256"].append(hashlib.sha256(_xml_body(res)).hexdigest())
-        out["regions"].append(len(res.contours))
-        print(f"{mode} child: {page[1]}: {out['page_s'][-1]:.3f} s, "
-              f"{len(res.contours)} regions", flush=True)
-    out.update(page_launches=radon.launches, fallbacks=dict(det.fallbacks),
-               degraded=det.degraded)
+    with _served_run():
+        for page in pages:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res = det.process_image(*page)
+            torch.cuda.synchronize()
+            out["page_s"].append(time.time() - t0)
+            out["xml_sha256"].append(
+                hashlib.sha256(_xml_body(res)).hexdigest())
+            out["regions"].append(len(res.contours))
+            print(f"{mode} child: {page[1]}: {out['page_s'][-1]:.3f} s, "
+                  f"{len(res.contours)} regions", flush=True)
+        page_launches = radon.launches
+    out.update(page_launches=page_launches, fallbacks=dict(det.fallbacks),
+               degraded=det.degraded, convgn=SERVED_CONVGN)
     return out
 
 
@@ -3127,6 +3541,9 @@ def warm_phase(details, models, results):
         raise AssertionError("warm_up never launched the radon kernel")
     launches = (warm["warm_up_launches"] + warm["page_launches"]
                 + cold["page_launches"])
+    for run in (warm, cold):
+        for k in SERVED_CONVGN:
+            SERVED_CONVGN[k] += run["convgn"][k]
 
     # here, after every path has run: warm_up under DEFAULT_CONFIG, then
     # with warm_fallback_programs (the canvas-resident rung and the host
@@ -3136,11 +3553,11 @@ def warm_phase(details, models, results):
         cfg = dataclasses.replace(DEFAULT_CONFIG, runtime=dataclasses.replace(
             DEFAULT_CONFIG.runtime, warm_fallback_programs=flag))
         det = TextlineDetector(models, cfg)
-        radon.launches = 0
-        t0 = time.time()
-        timings = det.warm_up(*WARM_HW)
-        here[flag] = {"seconds": time.time() - t0, "jobs": timings,
-                      "radon_launches": radon.launches}
+        with _served_run():
+            t0 = time.time()
+            timings = det.warm_up(*WARM_HW)
+            here[flag] = {"seconds": time.time() - t0, "jobs": timings,
+                          "radon_launches": radon.launches}
         launches += radon.launches
         if set(timings) != _warm_keys(cfg, models.region):
             raise AssertionError(f"warm_up returned {sorted(timings)}")
@@ -3181,8 +3598,8 @@ def main() -> int:
     parser.add_argument("--only", choices=["batch", "bench"],
                         help="a shorter run: `batch` leaves out the fallback "
                         "ladder, the classic bundle, the bench and training; "
-                        "`bench` runs the kernel phase, the bench and the A/B "
-                        "phase only")
+                        "`bench` runs the kernel phases, the bench and the "
+                        "A/B phase only")
     parser.add_argument("--warm-child", choices=["warm", "cold"],
                         help="run as one of warm_phase's child processes "
                         "and print its result as the last line")
@@ -3240,11 +3657,17 @@ def main() -> int:
 def _phases(args, dev, details, torch) -> int:
     """Every phase after the builds, then the two result lines."""
     kernel = kernel_phase(dev, details)
+    convgn = convgn_phase(dev, details)
     if args.only == "bench":
         launches, ckpt = bench_phase(dev, details, args.details)
         launches += ab_phase(dev, details, ckpt)
     else:
         launches = _serving_phases(args, dev, details)
+    details["served_convgn"] = dict(SERVED_CONVGN)
+    print(f"served runs: {SERVED_CONVGN['launches']} convgn launches for "
+          f"{SERVED_CONVGN['forwards']} ConvGN forwards", flush=True)
+    if SERVED_CONVGN["launches"] == 0:
+        raise AssertionError("no served run launched the convgn kernels")
     print(json.dumps({"kernels": [{
         "name": "radon_pairs", "route": "cuda",
         "source": "sbb_textline_detection_tpu_torch/csrc/radon.cu",
@@ -3252,7 +3675,13 @@ def _phases(args, dev, details, torch) -> int:
         "launches": launches, "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
-        "library_ms": kernel["library_ms"]}]}), flush=True)
+        "library_ms": kernel["library_ms"]}, {
+        "name": "convgn", "route": "cuda",
+        "source": "sbb_textline_detection_tpu_torch/csrc/convgn.cu",
+        "replaces": None, "launches": SERVED_CONVGN["launches"],
+        "ms": convgn["ms"], "plain_ms": convgn["plain_ms"],
+        "bound_ms": convgn["bound_ms"], "bound_by": convgn["bound_by"],
+        "library_ms": convgn["library_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -14,7 +14,8 @@ out (N, H, W, n_classes); channels_last inside. Matches the Flax module:
     trip between the conv and the norm in the fusion that normalises, and
     keeps it in the fusions that reduce;
   * GroupNorm (eps 1e-6, min(32, C) groups) and tanh-approximated GELU in
-    float32, then a cast back to the compute dtype;
+    float32, then a cast back to the compute dtype (ops/groupnorm.py; on
+    the card two kernels, csrc/convgn.cu);
   * a stride-2 stem, nearest 2x upsampling with skip concatenation, a
     full-resolution refine conv, and a float32 1x1 head with bias, in full
     float32 (no TF32) in either compute dtype (`_Head`).
@@ -30,7 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from sbb_textline_detection_tpu_torch.ops import precision
+from sbb_textline_detection_tpu_torch.ops import groupnorm, precision
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -44,29 +45,11 @@ def _same_pad(size: int, k: int, stride: int):
     return total // 2, total - total // 2
 
 
-def group_norm(x: torch.Tensor, s: torch.Tensor,
-               norm: nn.GroupNorm) -> torch.Tensor:
-    """Flax GroupNorm in float32 with its statistics taken over `s` (x,
-    or x as the reference rounds it for them: ConvGN.conv_gn): var =
-    E[s^2] - E[s]^2 clipped at 0 (Flax's default fast variance), y = (x -
-    E[s]) * rsqrt(var + eps) * scale + bias. Group statistics are means
-    of per-channel means (groups are equal-sized), which keeps the NHWC
-    activation in its memory layout."""
-    n, c = x.shape[:2]
-    g = norm.num_groups
-    mean = s.mean(dim=(2, 3)).reshape(n, g, c // g).mean(-1)
-    mean2 = (s * s).mean(dim=(2, 3)).reshape(n, g, c // g).mean(-1)
-    var = torch.clamp(mean2 - mean * mean, min=0.0)
-    mean = mean.repeat_interleave(c // g, dim=1)
-    var = var.repeat_interleave(c // g, dim=1)
-    mul = torch.rsqrt(var + norm.eps) * norm.weight
-    return ((x - mean[:, :, None, None]) * mul[:, :, None, None]
-            + norm.bias[None, :, None, None])
-
-
 class ConvGN(nn.Module):
     """3x3 conv + GroupNorm + GELU; the norm runs in float32 on the conv's
-    float32 sum (conv_gn)."""
+    float32 sum. The epilogue after the conv (ops/groupnorm.epilogue) is
+    csrc/convgn.cu's two kernels in a CUDA forward that records no
+    gradient, and conv_gn's arithmetic + GELU + the cast otherwise."""
 
     def __init__(self, in_ch: int, features: int, stride: int = 1,
                  dtype: torch.dtype = torch.bfloat16):
@@ -77,17 +60,20 @@ class ConvGN(nn.Module):
         self.norm = nn.GroupNorm(min(32, features), features, eps=1e-6)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.gelu(self.conv_gn(x), approximate="tanh").to(self.dtype)
+        return groupnorm.epilogue(self.conv_sum(self.pad(x)), self.norm,
+                                  self.dtype)
 
     def conv_gn(self, x: torch.Tensor) -> torch.Tensor:
         """The block before GELU: the conv's float32 sum through
-        GroupNorm, float32 (N, features, H', W'). The statistics come
-        from the sum rounded to the compute dtype, the normalised values
-        from the unrounded sum: the JAX package's compiled forward keeps
-        the conv's bf16 round trip inside the fusions that reduce it and
-        drops it in the one that normalises."""
+        GroupNorm, float32 (N, features, H', W'), in plain PyTorch on any
+        device. The statistics come from the sum rounded to the compute
+        dtype, the normalised values from the unrounded sum: the JAX
+        package's compiled forward keeps the conv's bf16 round trip inside
+        the fusions that reduce it and drops it in the one that
+        normalises."""
         x = self.conv_sum(self.pad(x))
-        return group_norm(x, x.to(self.dtype).to(torch.float32), self.norm)
+        return groupnorm.group_norm(x, x.to(self.dtype).to(torch.float32),
+                                    self.norm)
 
     def pad(self, x: torch.Tensor) -> torch.Tensor:
         """Flax's SAME padding of the block's input."""

@@ -63,29 +63,39 @@ def _nvcc() -> str:
         return path
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME): the radon "
-                           "kernel is built from csrc/radon.cu at first use")
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the kernels "
+                           "are built from csrc/ at first use")
     return found
+
+
+def compile_source(source: str, stem: str):
+    """Compile a CUDA source of the package with nvcc into
+    `build/kernels/lib<stem>-<hash>.so`, once per source content and
+    flags. Returns (path, nvcc's report), the report empty where the
+    library was built before."""
+    with open(source, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
+                                ).hexdigest()[:16]
+    out = os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
+    if os.path.exists(out):
+        return out, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
+                          capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{log}")
+    os.replace(tmp, out)
+    return out, log
 
 
 def build() -> str:
     """Compile csrc/radon.cu (once per source content) and return the
     shared library's path."""
     global build_log
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"libradon-{digest}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{build_log}")
-    os.replace(tmp, out)
+    out, log = compile_source(SOURCE, "radon")
+    build_log = log or build_log
     return out
 
 
