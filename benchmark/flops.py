@@ -1,19 +1,23 @@
 """The benchmark's own arithmetic of the model work on a page: FLOPs and
-bytes of each TpuUnet forward from its widths, the tiles of a page crop,
+bytes of each forward from its role's spec (a TpuUnet from its widths, or
+the ResNet50-UNet of benchmark/plain_resnet), the tiles of a page crop,
 and the H100's peaks.
 
-A forward's FLOPs are its convolutions' multiply-adds counted twice: a 3x3
-conv from C_in to C_out channels onto an H x W output is 2 * 9 * C_in *
-C_out * H * W, the 1x1 head 2 * C_in * C_out * H * W. GroupNorm, GELU,
-upsampling and the argmax are not counted. A forward's least bytes count
-its input once (bf16, the served operand type), its weights once (bf16)
-and its logits once (float32).
+A forward's FLOPs are its convolutions' multiply-adds counted twice: a
+k x k conv from C_in to C_out channels onto an H x W output is 2 * k * k *
+C_in * C_out * H * W. Norms, activations, biases, pooling, upsampling and
+the argmax are not counted. A forward's least bytes count its input once
+(bf16, the served operand type), its weights once (bf16) and its logits
+once (float32). The peaks are the bf16 tensor-core rate and HBM3 for every
+configuration, also one served in float32: they are the card's ceiling
+whatever computes a forward.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+from benchmark.plain_resnet import DECODER, STAGES
 from benchmark.reference import grid_for
 
 # NVIDIA H100 SXM, dense (data sheet): bf16 tensor-core rate and HBM3
@@ -27,8 +31,10 @@ def _out(size: int, stride: int) -> int:
 
 
 def conv_shapes(spec: dict, size: int):
-    """(C_in, C_out, H_out, W_out, k) of every conv of the spec's TpuUnet
-    on a size x size input, in call order."""
+    """(C_in, C_out, H_out, W_out, k) of every conv of the spec's model on
+    a size x size input, in call order."""
+    if spec.get("arch", "tpu_unet") == "resnet50_unet":
+        return _resnet_conv_shapes(spec, size)
     widths: Sequence[int] = spec["widths"]
     shapes = []
     s = _out(size, 2)
@@ -52,6 +58,30 @@ def conv_shapes(spec: dict, size: int):
     return shapes
 
 
+def _resnet_conv_shapes(spec: dict, size: int):
+    """The ResNet50-UNet's convs: the 7 x 7 stem, each bottleneck's 1 x 1,
+    3 x 3 and 1 x 1 (and the first block's 1 x 1 projection), the
+    decoder's 3 x 3 convs and the 3 x 3 head."""
+    s = _out(size, 2)
+    shapes = [(spec.get("in_channels", 3), 64, s, s, 7)]
+    s = _out(s, 2)                                  # the max-pool
+    ch = 64
+    for _, blocks, (f1, f2, f3), stride in STAGES:
+        for b in range(len(blocks)):
+            if b == 0:
+                s = _out(s, stride)
+                shapes.append((ch, f3, s, s, 1))    # the projection
+            shapes += [(ch, f1, s, s, 1), (f1, f2, s, s, 3),
+                       (f2, f3, s, s, 1)]
+            ch = f3
+    for _, out_w, skip_w in DECODER:
+        shapes.append((ch, out_w, s, s, 3))
+        s *= 2
+        ch = out_w + skip_w
+    shapes.append((ch, spec["n_classes"], s, s, 3))
+    return shapes
+
+
 def forward_flops(spec: dict) -> float:
     """FLOPs of one forward of one input of the spec's size."""
     return float(sum(2 * k * k * ci * co * h * w for ci, co, h, w, k
@@ -59,10 +89,16 @@ def forward_flops(spec: dict) -> float:
 
 
 def weight_count(spec: dict) -> int:
-    """Parameters of the spec's TpuUnet (conv kernels, GroupNorm scales and
-    biases, the head's bias)."""
+    """Parameters of the spec's model: conv kernels, GroupNorm scales and
+    biases and the TpuUnet head's bias; or the ResNet50-UNet's conv
+    kernels and biases and each BatchNorm's scale, bias, mean and
+    variance (one after every conv but the head)."""
+    shapes = conv_shapes(spec, spec["input_height"])
+    if spec.get("arch", "tpu_unet") == "resnet50_unet":
+        return sum(k * k * ci * co + co for ci, co, _, _, k in shapes) \
+            + sum(4 * co for _, co, _, _, _ in shapes[:-1])
     n = 0
-    for ci, co, _, _, k in conv_shapes(spec, spec["input_height"]):
+    for ci, co, _, _, k in shapes:
         n += k * k * ci * co + (2 * co if k == 3 else co)
     return n
 

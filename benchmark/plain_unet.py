@@ -1,6 +1,9 @@
 """The plain TpuUnet: the benchmark's float32 statement of the segmentation
 network that the program serves, with no kernel, precision switch or
-rounding contract of the program's.
+rounding contract of the program's. This module also builds, initialises,
+saves and loads a role of either architecture that a configuration names
+(`spec["arch"]`): "tpu_unet" here, "resnet50_unet" in
+benchmark/plain_resnet.
 
 The architecture is the JAX package's TpuUnet (its models/unet.py): a
 stride-2 stem, per width two 3x3 convs and a stride-2 conv, two convs at
@@ -15,7 +18,10 @@ E[x^2] - E[x]^2.
 Parameters carry the program's state_dict names (stem, ConvGN_i, refine,
 head), and `save` / `load` read and write the program's `.npz` checkpoint
 layout (the flattened Flax tree under "::"-joined keys and a JSON
-`__meta__`), so the program loads what the recipe trains.
+`__meta__`), so the program loads what the recipe trains. A BatchNorm of
+the ResNet50-UNet (a module with a running_mean) is Flax's
+`<name>/BatchNorm_0`: its scale and bias under `params`, its mean and
+variance under `batch_stats`.
 
 `quantize` (the control of the correctness check): with "fp8", every
 conv's input and weight are rounded to float8 e4m3 with a per-tensor
@@ -128,28 +134,43 @@ class PlainTpuUnet(nn.Module):
         return self.head(self.refine(upsample2x(x)))
 
 
-def build(spec: dict) -> PlainTpuUnet:
+def build(spec: dict) -> nn.Module:
     """The module of a configuration's role spec (a dict of the program's
-    ModelSpec fields)."""
+    ModelSpec fields): a PlainTpuUnet, or for "arch" "resnet50_unet" a
+    plain_resnet.PlainResNet50Unet."""
+    if spec.get("arch", "tpu_unet") == "resnet50_unet":
+        # here, not at the top: plain_resnet imports this module
+        from benchmark.plain_resnet import PlainResNet50Unet
+
+        return PlainResNet50Unet(spec["n_classes"],
+                                 spec.get("in_channels", 3))
     return PlainTpuUnet(spec["n_classes"], spec["widths"],
                         spec.get("in_channels", 3))
+
+
+def _batch_norms(keys) -> set:
+    """The modules among state_dict keys that are BatchNorms."""
+    return {k.rsplit(".", 1)[0] for k in keys if k.endswith(".running_mean")}
 
 
 def init_state(module: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
     """Flax's initialisers' distributions, drawn in state_dict order from a
     CPU generator seeded `seed`: lecun-normal conv kernels (fan-in
-    variance, normal truncated at 2 sigma), unit GroupNorm scales, zero
-    biases."""
+    variance, normal truncated at 2 sigma), unit GroupNorm and BatchNorm
+    scales, unit BatchNorm variances, zero biases and BatchNorm means."""
     gen = torch.Generator().manual_seed(seed)
+    bn = _batch_norms(module.state_dict())
     sd = {}
     for key, t in module.state_dict().items():
         t = torch.empty(t.shape, dtype=torch.float32)
+        mod, leaf = key.rsplit(".", 1)
         if t.ndim == 4:
             fan_in = t.shape[1] * t.shape[2] * t.shape[3]
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
                                   generator=gen)
-        elif key.endswith("norm.weight"):
+        elif key.endswith("norm.weight") or (
+                mod in bn and leaf in ("weight", "running_var")):
             t.fill_(1.0)
         else:
             t.zero_()
@@ -168,9 +189,19 @@ def state_sha256(state: Dict[str, torch.Tensor]) -> str:
     return digest.hexdigest()
 
 
-def _flax_key(key: str) -> str:
+_BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+              "running_mean": ("batch_stats", "mean"),
+              "running_var": ("batch_stats", "var")}
+
+
+def _flax_key(key: str, bn) -> str:
+    """The checkpoint key of a state_dict key; `bn` names the BatchNorm
+    modules."""
     mod, leaf = key.rsplit(".", 1)
     parts = mod.split(".")
+    if mod in bn:
+        collection, name = _BN_LEAVES[leaf]
+        return _SEP.join([collection] + parts + ["BatchNorm_0", name])
     if parts[-1] == "norm":
         parts[-1] = "GroupNorm_0"
         name = "scale" if leaf == "weight" else "bias"
@@ -184,13 +215,15 @@ def _flax_key(key: str) -> str:
 def save(path: str, spec: dict, state: Dict[str, torch.Tensor]) -> None:
     """Write a state_dict in the program's `.npz` checkpoint layout."""
     arrays = {}
+    bn = _batch_norms(state)
     for key, t in state.items():
         a = t.detach().to("cpu", torch.float32).numpy()
         if a.ndim == 4:
             a = a.transpose(2, 3, 1, 0)          # OIHW -> HWIO
-        arrays[_flax_key(key)] = np.ascontiguousarray(a)
+        arrays[_flax_key(key, bn)] = np.ascontiguousarray(a)
     meta = dict(spec)
-    meta["widths"] = list(meta["widths"])
+    if "widths" in meta:
+        meta["widths"] = list(meta["widths"])
     meta["heads"] = list(meta.get("heads", ()))
     arrays[_META_KEY] = np.frombuffer(json.dumps(meta).encode("utf-8"),
                                       dtype=np.uint8)
@@ -200,10 +233,11 @@ def save(path: str, spec: dict, state: Dict[str, torch.Tensor]) -> None:
 def load(path: str, module: nn.Module) -> Dict[str, torch.Tensor]:
     """The state_dict of `module`'s names read from a checkpoint written
     by `save`."""
+    bn = _batch_norms(module.state_dict())
     with np.load(path) as data:
         sd = {}
         for key in module.state_dict():
-            a = data[_flax_key(key)]
+            a = data[_flax_key(key, bn)]
             if a.ndim == 4:
                 a = a.transpose(3, 2, 0, 1)      # HWIO -> OIHW
             sd[key] = torch.from_numpy(np.ascontiguousarray(a, np.float32))

@@ -6,6 +6,7 @@ ctx holds "entry" (batch or single), "window" (run.Window) and "work"
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional
 
 
@@ -15,13 +16,23 @@ def unprofiled(ctx) -> List[dict]:
             if p["res"] is not None and not p["profiled"]]
 
 
+def timed(ctx) -> List[dict]:
+    """The unprofiled pages whose time unprofiled_seconds holds: all of a
+    batch's; of a single entry's, those that did not fail (a failed page's
+    wall reads inf)."""
+    pages = unprofiled(ctx)
+    if ctx["entry"] == "single":
+        return [p for p in pages if math.isfinite(p["wall"])]
+    return pages
+
+
 def unprofiled_seconds(ctx) -> float:
-    """The wall of the unprofiled pages: a single entry's page walls, or
-    the batch window less the profiled slice and the profiler's start and
-    stop."""
+    """The wall of the unprofiled pages: a single entry's walls of the
+    timed pages, or the batch window less the profiled slice and the
+    profiler's start and stop."""
     win = ctx["window"]
     if ctx["entry"] == "single":
-        return sum(p["wall"] for p in unprofiled(ctx))
+        return sum(p["wall"] for p in timed(ctx))
     sl = win.slice
     return win.seconds - (sl["wall_s"] + sl["overhead_s"] if sl else 0.0)
 

@@ -1,5 +1,9 @@
 """The weights of a configuration, trained by a recipe frozen in the
-benchmark: for each role the plain float32 TpuUnet (benchmark/plain_unet)
+benchmark: for each role its plain float32 model, a TpuUnet
+(benchmark/plain_unet) or, where the role's spec says "arch":
+"resnet50_unet", upstream's ResNet50-UNet (benchmark/plain_resnet, its
+BatchNorms on batch statistics while they train, their running statistics
+then averaged over the BN_BATCHES batches that follow the last step),
 from Flax's initialisers' distributions drawn for the recipe's seed,
 AdamW (the recipe's learning rate and weight decay, betas 0.9 / 0.999,
 eps 1e-8), batches of the role's synthetic task (benchmark/synthetic)
@@ -32,7 +36,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-from benchmark import plain_unet, synthetic  # noqa: E402
+from benchmark import plain_resnet, plain_unet, synthetic  # noqa: E402
+
+# the batches after the last step over which a ResNet50-UNet's BatchNorm
+# statistics are averaged (plain_resnet.recalibrate)
+BN_BATCHES = 50
 
 
 def _batches(fn, seed: int, n: int, h: int, w: int, depth: int = 4):
@@ -99,16 +107,22 @@ def train_role(entry: dict, recipe: dict, device) -> dict:
                     spec["input_height"], spec["input_width"])
     heads = tuple(spec.get("heads", ()))
     losses = []
+
+    def inputs(imgs):
+        return torch.from_numpy(imgs).to(device).permute(0, 3, 1, 2)
+
     try:
         for _ in range(entry["steps"]):
             imgs, labels = next(data)
-            x = torch.from_numpy(imgs).to(device).permute(0, 3, 1, 2)
             y = torch.from_numpy(labels).to(device)
             opt.zero_grad(set_to_none=True)
-            loss = _loss(module(x), y, heads)
+            loss = _loss(module(inputs(imgs)), y, heads)
             loss.backward()
             opt.step()
             losses.append(loss.detach())
+        if isinstance(module, plain_resnet.PlainResNet50Unet):
+            plain_resnet.recalibrate(module, (
+                inputs(next(data)[0]) for _ in range(BN_BATCHES)))
     finally:
         data.close()
     entry["losses"] = torch.stack(losses).tolist() if losses else []

@@ -1,9 +1,16 @@
 """The benchmark's plain reference and arithmetic against the program on
-the CPU: the plain TpuUnet against the port's float32 forward, the
-reference's page box and raw-path segmentation against the port's float32
-paths, the float8 control's rounding, the FLOP and byte counts against
-hand counts, and the layout judge."""
+the CPU: the plain TpuUnet and ResNet50-UNet against the port's float32
+forwards, the reference's page box and raw-path segmentation against the
+port's float32 paths on either architecture, the float8 control's
+rounding, the FLOP and byte counts against hand counts and torch's FLOP
+counter, the existing configurations' page work against the numbers it
+has always given, and the layout judge."""
 
+import json
+import math
+import pathlib
+import subprocess
+import sys
 import xml.etree.ElementTree as ET
 
 import numpy as np
@@ -15,39 +22,79 @@ from benchmark.pool import render
 from benchmark.reference import Reference, box_from_labels, grid_for
 from benchmark.tests import tiny
 
+ROOT = pathlib.Path(__file__).resolve().parents[2]
 DUAL = tiny.spec("model_dualhead", 5, (3, 2), 2)
 PAGE = tiny.spec("model_page_mixed_best", 2)
-CONFIG = {"roles": {
-    "page": {"file": "model_page_mixed_best", "data": "page", "steps": 2,
-             "spec": PAGE},
-    "dualhead": {"file": "model_dualhead", "data": "dualhead", "steps": 2,
-                 "spec": DUAL}},
-    "recipe": {"seed": 0, "learning_rate": 3e-4, "weight_decay": 1e-4,
-               "batch": 2}}
+CONFIGS = {
+    "tpu_unet": {"roles": {
+        "page": {"file": "model_page_mixed_best", "data": "page",
+                 "steps": 2, "spec": PAGE},
+        "dualhead": {"file": "model_dualhead", "data": "dualhead",
+                     "steps": 2, "spec": DUAL}},
+        "recipe": {"seed": 0, "learning_rate": 3e-4, "weight_decay": 1e-4,
+                   "batch": 2}},
+    "resnet50_unet": tiny.three_roles(tiny.resnet_spec)}
+# the plain model against the port's: the TpuUnet within the rounding of
+# Flax's GroupNorm order; the ResNet50-UNet the same float32 arithmetic in
+# another summation order, max |err| <= 1e-5 of max |logit|
+PLAIN = {"tpu_unet": (DUAL, lambda got, want: torch.allclose(
+             got, want, atol=2e-4, rtol=1e-4)),
+         "resnet50_unet": (tiny.resnet_spec("model_strukturerkennung", 3),
+                           lambda got, want: bool(
+             (got - want).abs().max() <= 1e-5 * want.abs().max()))}
 
 
-@pytest.fixture(scope="module")
-def weights(tmp_path_factory):
+@pytest.fixture(scope="module", params=list(CONFIGS))
+def weights(request, tmp_path_factory):
+    config = CONFIGS[request.param]
     out = tmp_path_factory.mktemp("weights")
-    recipe.ensure(CONFIG, str(out), "cpu")
+    recipe.ensure(config, str(out), "cpu")
     torch.use_deterministic_algorithms(False)
-    return out
+    return config, out
 
 
-def test_plain_unet_matches_the_ports_float32_forward():
-    from sbb_textline_detection_tpu_torch.models import unet
+def _port_module(spec):
+    from sbb_textline_detection_tpu_torch.models import registry
 
-    plain = plain_unet.build(DUAL)
-    plain.load_state_dict(plain_unet.init_state(plain, 3))
-    port = unet.TpuUnet(5, DUAL["widths"], in_channels=2,
-                        dtype=torch.float32)
+    return registry.build_module(registry.ModelSpec.from_meta(spec),
+                                 torch.float32)
+
+
+def _stir_batch_norms(state, seed):
+    """The BatchNorms' scales, biases and running statistics drawn off
+    their initial 1 and 0, so that the eval() formula is exercised."""
+    gen = torch.Generator().manual_seed(seed)
+    bn = {k.rsplit(".", 1)[0] for k in state if k.endswith(".running_mean")}
+    for key, t in state.items():
+        mod, leaf = key.rsplit(".", 1)
+        if mod in bn and leaf in ("weight", "running_var"):
+            state[key] = 0.5 + torch.rand(t.shape, generator=gen)
+        elif mod in bn:
+            state[key] = 0.1 * torch.randn(t.shape, generator=gen)
+    return state
+
+
+@pytest.mark.parametrize("arch", list(PLAIN))
+def test_plain_unet_matches_the_ports_float32_forward(arch):
+    """The plain model in eval() against the port's float32 forward on the
+    same state; the fp8 control fails the same comparison."""
+    spec, close = PLAIN[arch]
+    plain = plain_unet.build(spec)
+    plain.load_state_dict(_stir_batch_norms(plain_unet.init_state(plain, 3),
+                                            5))
+    port = _port_module(spec)
     port.load_state_dict(plain.state_dict())
-    x = torch.rand(2, 2, 64, 64, generator=torch.Generator().manual_seed(1))
+    plain.eval()
+    port.eval()
+    x = torch.rand(2, spec["in_channels"], 64, 64,
+                   generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         want = port.forward_nchw(x)
         got = plain(x)
-    assert torch.allclose(got, want, atol=2e-4, rtol=1e-4), \
-        (got - want).abs().max()
+        plain.set_quantize("fp8")
+        control = plain(x)
+    assert close(got, want), (got - want).abs().max()
+    assert not close(control, want), (control - want).abs().max()
 
 
 def test_fp8_control_rounds_to_three_mantissa_bits():
@@ -90,13 +137,14 @@ def test_box_from_labels_is_the_programs_page_box(labels):
 def test_reference_is_the_ports_float32_device_phase(weights, page_coord):
     """On one page box the reference's shaped region mask and textline
     labels equal the port's float32 raw path, and its page-model labels
-    the port's."""
+    the port's: the dual-head TpuUnet bundle and the three ResNet50-UNets."""
     from sbb_textline_detection_tpu_torch.pipeline import stages
 
+    config, weights = weights
     cfg = tiny.pipeline_config()
     models = _port_bundle(weights)
     page, _ = render(5, 1, (6.0, 0.5, 1, 0.2, False), 400, 300)
-    ref = Reference(CONFIG, str(weights), "cpu", (300, 240, 1.0))
+    ref = Reference(config, str(weights), "cpu", (300, 240, 1.0))
     th, tw = stages.working_dims(page, cfg)
     small = stages.page_model_input_from_raw(page, th, tw, 64, 64)
     want = models.page.predict_small_prescaled(small)
@@ -137,6 +185,86 @@ def test_flops_match_a_hand_count():
     assert flops.forward_bytes(spec, 10) == (
         2 * 10 * 64 * 64 * 3 + 2 * flops.weight_count(spec)
         + 4 * 10 * 64 * 64 * 2)
+
+
+@pytest.mark.parametrize("arch", ["tpu_unet", "resnet50_unet"])
+def test_forward_flops_equal_torchs_counter_on_the_ports_module(arch):
+    """At 448 x 448 on the meta device: the flagship dual-head TpuUnet and
+    the ResNet50-UNet (59.3 GFLOP a tile); the weight count is the port's
+    state_dict's size."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    if arch == "tpu_unet":
+        config = json.loads((ROOT / "benchmark" / "configs" /
+                             "tpu_dualhead.json").read_text())
+        spec = config["roles"]["dualhead"]["spec"]
+    else:
+        spec = dict(tiny.resnet_spec("model_strukturerkennung", 3),
+                    input_height=448, input_width=448)
+    with torch.device("meta"):
+        port = _port_module(spec)
+        x = torch.empty(1, spec["in_channels"], 448, 448)
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        port.forward_nchw(x)
+    assert flops.forward_flops(spec) == counter.get_total_flops()
+    assert flops.weight_count(spec) == sum(
+        t.numel() for t in port.state_dict().values())
+    if arch == "resnet50_unet":
+        assert flops.forward_flops(spec) == pytest.approx(59.3e9, rel=0.01)
+
+
+# flops.page_work of the benchmark's configurations on three page boxes, as
+# the arithmetic has given them since the benchmark began: (tiles, flops,
+# seg_flops, seg_bytes)
+PAGE_WORK = {
+    "tpu_dualhead": [
+        (60, 1869145112576.0, 1838512865280.0, 307887050.0),
+        (40, 1256307490816.0, 1225675243520.0, 211549130.0),
+        (48, 1501442539520.0, 1470810292224.0, 250084298.0)],
+    "tpu_threemodel": [
+        (60, 3707272626176.0, 3676640378880.0, 423099082.0),
+        (40, 2481725833216.0, 2451093585920.0, 294648522.0),
+        (48, 2971944550400.0, 2941312303104.0, 346028746.0)]}
+BOXES = ([0, 3000, 0, 2000], [120, 2900, 77, 1800], [31, 2804, 200, 2310])
+
+
+@pytest.mark.parametrize("name", list(PAGE_WORK))
+def test_page_work_of_the_configurations_is_unchanged(name):
+    config = json.loads((ROOT / "benchmark" / "configs" /
+                         f"{name}.json").read_text())
+    for box, want in zip(BOXES, PAGE_WORK[name]):
+        work = flops.page_work(config, box)
+        assert (work["tiles"], work["flops"], work["seg_flops"],
+                work["seg_bytes"]) == want
+
+
+def test_plain_resnet_loads_neither_jax_nor_the_program():
+    code = ("import json, sys, benchmark.plain_resnet; print(json.dumps("
+            "sorted({m.split('.')[0] for m in sys.modules})))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True)
+    loaded = set(json.loads(out.stdout))
+    assert "benchmark" in loaded
+    assert not loaded & {"jax", "jaxlib", "flax", "sbb_textline_detection_tpu",
+                         "sbb_textline_detection_tpu_torch"}
+
+
+def test_mfu_of_a_single_entry_leaves_a_failed_page_out():
+    """A failed page's wall reads inf: the share is that of the pages
+    served (it read 0 when the inf entered the sum of walls)."""
+    from types import SimpleNamespace
+
+    from benchmark import run
+
+    res = SimpleNamespace()
+    pages = [{"j": 0, "res": res, "profiled": False, "wall": 0.5},
+             {"j": 1, "res": res, "profiled": False, "wall": math.inf},
+             {"j": 1, "res": res, "profiled": True, "wall": 0.4}]
+    ctx = {"entry": "single",
+           "window": SimpleNamespace(pages=pages, seconds=2.0, slice=None),
+           "work": [{"flops": 0.1 * flops.PEAK_BF16_FLOPS},
+                    {"flops": 0.2 * flops.PEAK_BF16_FLOPS}]}
+    assert run._reader("mfu").read(ctx) == pytest.approx(20.0)
 
 
 def test_page_work_counts_the_raw_paths_tiles():

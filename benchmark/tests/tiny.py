@@ -1,7 +1,9 @@
 """A tiny copy of the benchmark's tree for the CPU tests: the real
 BENCHMARK.json's metrics and cells over tiny configurations (TpuUnets of
 widths (8, 16) on 64 x 64 tiles, a few recipe steps), small pages and a
-PipelineConfig whose resize policy keeps them small."""
+PipelineConfig whose resize policy keeps them small; and the ResNet50-UNet
+roles' specs on 64 x 64 tiles (its widths are the published ones at any
+tile size)."""
 
 from __future__ import annotations
 
@@ -21,6 +23,25 @@ def spec(name, n, heads=(), inch=3):
     return {"name": name, "arch": "tpu_unet", "input_height": 64,
             "input_width": 64, "n_classes": n, "widths": [8, 16],
             "heads": list(heads), "in_channels": inch}
+
+
+def resnet_spec(name, n, inch=3):
+    return {"name": name, "arch": "resnet50_unet", "input_height": 64,
+            "input_width": 64, "n_classes": n, "heads": [],
+            "in_channels": inch}
+
+
+def three_roles(make, steps=2):
+    """The recipe's three-model roles (page, region, textline) of `make`'s
+    specs (`spec` or `resnet_spec`), under the recipe the tests train."""
+    names = (("page", "model_page_mixed_best", 2),
+             ("region", "model_strukturerkennung", 3),
+             ("textline", "model_textline_new", 2))
+    return {"roles": {role: {"file": name, "data": role, "steps": steps,
+                             "spec": make(name, n)}
+                      for role, name, n in names},
+            "recipe": {"seed": 0, "learning_rate": 3e-4,
+                       "weight_decay": 1e-4, "batch": 2}}
 
 
 def pipeline_config():
