@@ -28,7 +28,8 @@ benchmark/limits/<cell>.json. A run:
      window;
   5. judges the answers (benchmark/reference.py, layout_score.py) once the
      window has closed and the program is freed, and prints each number
-     compared beside its limit on standard error and as the result's last
+     compared beside its limit on standard error (a worst-of-page layout
+     number with the pool page that set it) and as the result's last
      key;
   6. prints one JSON line: correct, attempted, failed, metrics (the
      cell's end-to-end metrics, or with --trace 1 its per-layer metrics),
@@ -522,6 +523,19 @@ def numbers(pages: List[dict], served: Optional[List[dict]]
     return out
 
 
+def check_lines(checks: Dict[str, dict], served: List[dict]) -> List[str]:
+    """One line a number compared, its value beside its limit; a
+    worst-of-page layout number names the pool page j of the first served
+    page that set it."""
+    out = []
+    for k, v in checks.items():
+        line = f"check {k} {v['value']} limit {v['limit']}"
+        if k in SERVED_WORST and served:
+            line += f" pool page {max(served, key=lambda p: p[k])['j']}"
+        out.append(line)
+    return out
+
+
 def _rank(values: List[float], q: float) -> float:
     """The nearest-rank q-quantile (a failed page's inf stays inf)."""
     s = sorted(values)
@@ -740,8 +754,8 @@ def main(argv=None, device: Optional[str] = None,
     if found:
         log(f"[bench] loaded in this process: {found}")
         return 3
-    for k, v in checks.items():
-        log(f"check {k} {v['value']} limit {v['limit']}")
+    for line in check_lines(checks, detail["served"]):
+        log(line)
     print(json.dumps(out), flush=True)
     return 0
 

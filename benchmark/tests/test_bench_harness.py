@@ -230,6 +230,37 @@ def test_a_tiny_run_loads_neither_jax_nor_the_jax_package(tree):
     assert "sbb_textline_detection_tpu_torch" in mods
 
 
+def test_check_lines_name_the_pool_page_of_each_worst_number():
+    """On a fake window of served pages: each worst-of-page layout number
+    names the pool page j that set it (the first, on a tie); the kept
+    comparisons and the window's means name none."""
+    import types
+
+    worst = {3: {"line_recall_gap": 0.1, "line_count_err": 2.0,
+                 "reading_order_gap": 0.0, "slope_deg": 0.3},
+             1: {"line_recall_gap": 0.6, "line_count_err": 0.5,
+                 "reading_order_gap": 0.0, "slope_deg": 15.3},
+             4: {"line_recall_gap": 0.6, "line_count_err": 1.0,
+                 "reading_order_gap": 0.4, "slope_deg": 0.1}}
+    served = [{"j": j, **worst[j], "line_precision_gap": 0.1,
+               "region_recall_gap": 0.0, "region_precision_gap": 0.2}
+              for j in (3, 1, 4, 3)]
+    kept = [{"j": j, "page_labels_px": 1e-4, "region_px": 2e-4,
+             "textline_px": 0.0, "page_box_px": 0.0} for j in (1, 3)]
+    cell = types.SimpleNamespace(limits=tiny.LOOSE)
+    _, checks = run.verdict(cell, run.numbers(kept, served))
+    lines = run.check_lines(checks, served)
+    assert len(lines) == len(checks)
+    setter = {"line_recall_gap": 1, "line_count_err": 3,
+              "reading_order_gap": 4, "slope_deg": 1}
+    for line, (k, v) in zip(lines, checks.items()):
+        head = f"check {k} {v['value']} limit {v['limit']}"
+        if k in run.SERVED_WORST:
+            assert line == f"{head} pool page {setter[k]}"
+        else:
+            assert line == head
+
+
 def test_idle_share_takes_the_union_of_overlapping_streams():
     # two streams: [0, 4] and [2, 6] overlap, [8, 9] after a gap
     device = [("conv", 0.0, 4.0), ("gemm", 2.0, 6.0), ("radon", 8.0, 9.0),
